@@ -1,4 +1,4 @@
-"""JAX-package variables → this package's `state_dict`.
+"""JAX-package variables ↔ this package's `state_dict`.
 
 The inverse direction of `centerpose_tpu/models/convert.py`: that module fills
 the flax tree from a PyTorch `state_dict` of the reference's names; this one
@@ -11,6 +11,10 @@ this package's modules use. Layout changes:
                          (no flip: the JAX package flips when it applies it)
   DCN weight             [3, 3, C, Co]        → OIHW; offset/mask conv as any conv
   BatchNorm              scale/bias/mean/var  → weight/bias/running_mean/running_var
+
+`to_jax_tree` goes the other way through the same names map (`_key_for`), so
+that gradients, running statistics and updated parameters of the two packages
+can be compared tree against tree.
 
 The whole tree is walked: a leaf with no mapping is an error, and
 `load_jax_variables` also refuses a leaf the model has no place for, a shape
@@ -120,6 +124,17 @@ def _key_for(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
     raise KeyError("/".join(path))
 
 
+def _has_gn(params: Mapping[str, Any]) -> bool:
+    return any(isinstance(v, Mapping) and "gn" in v for v in params.values())
+
+
+def _lookup(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
+    try:
+        return _key_for(path, has_gn)
+    except (KeyError, AttributeError, IndexError) as err:
+        raise KeyError(f"no state_dict name for the leaf {'/'.join(path)}") from err
+
+
 def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The `state_dict` (float32 CPU tensors, reference names) for a flax
     variables tree `{"params": ..., "batch_stats": ...}` of numpy arrays."""
@@ -127,9 +142,7 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if extra:
         raise KeyError(f"unknown variable collections: {sorted(extra)}")
     params = variables["params"]
-    has_gn = any(
-        isinstance(v, Mapping) and "gn" in v for v in params.values()
-    )
+    has_gn = _has_gn(params)
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path):
@@ -137,12 +150,7 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for k, v in tree.items():
                 walk(v, path + (k,))
             return
-        try:
-            key, transform = _key_for(path, has_gn)
-        except (KeyError, AttributeError, IndexError) as err:
-            raise KeyError(
-                f"no state_dict name for the leaf {'/'.join(path)}"
-            ) from err
+        key, transform = _lookup(path, has_gn)
         if key in out:
             raise KeyError(f"two leaves map to {key!r} ({'/'.join(path)})")
         out[key] = torch.from_numpy(
@@ -156,6 +164,32 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             (), dtype=torch.int64
         )
     return out
+
+
+def to_jax_tree(named: Mapping[str, Any], like: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of `from_jax_variables`: a tree with the structure of
+    `like` (a flax variables tree, or a part of one such as `{"params": ...}`)
+    whose leaves are the entries of `named` (tensors or arrays by `state_dict`
+    name: parameters, their gradients, buffers) as float32 numpy arrays in the
+    JAX package's layouts. Every leaf of `like` must have its entry."""
+    extra = set(like) - {"params", "batch_stats"}
+    if extra:
+        raise KeyError(f"unknown variable collections: {sorted(extra)}")
+    has_gn = _has_gn(like.get("params", {}))     # only names of `params` depend on it
+
+    def walk(tree, path):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        key, transform = _lookup(path, has_gn)
+        if key not in named:
+            raise KeyError(f"{key!r} (leaf {'/'.join(path)}) is not among the named tensors")
+        val = named[key]
+        val = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        if transform is _t_conv:                       # OIHW → HWIO
+            val = np.transpose(val, (2, 3, 1, 0))
+        return np.ascontiguousarray(val, dtype=np.float32)
+
+    return {coll: walk(tree, ()) for coll, tree in like.items()}
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:

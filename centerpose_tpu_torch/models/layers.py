@@ -114,7 +114,9 @@ class Tree(nn.Module):
                               root_residual=root_residual)
         self.downsample = nn.MaxPool2d(stride, stride=stride) if stride > 1 else None
         # Present whenever the widths differ, as in the reference; only a
-        # one-level tree reads its output.
+        # one-level tree reads its output. A deeper tree still runs it in
+        # train mode, as the reference and the JAX package do at every call:
+        # its BatchNorm statistics are part of a trained checkpoint.
         self.project = (
             conv_bn_relu(cin, cout, 1, relu=False) if cin != cout else None
         )
@@ -129,6 +131,9 @@ class Tree(nn.Module):
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)
+        if self.project is not None and self.training:
+            with torch.no_grad():
+                self.project(bottom)                     # running statistics only
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children)

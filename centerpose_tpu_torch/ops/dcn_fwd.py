@@ -11,9 +11,12 @@ tensors it is given, and on nothing else:
     are all errors. There is no fallback to the plain version.
   * CPU tensors take the plain version, `ops/dcn.py::dcn_v2`.
 
-Only the forward pass has a kernel so far. Asked to record a gradient (an
-input requires grad while grad mode is on) the CUDA path raises instead of
-returning a tensor with no graph behind it; run it under `torch.no_grad()`.
+It is differentiable on both devices. On the CPU ordinary autograd goes
+through the plain version. On CUDA, when a gradient is being recorded (an
+operand requires grad while grad mode is on), the call goes through
+`DCNv2Function`: forward = the forward kernel, backward = the backward kernels
+of `ops/dcn_bwd.py` (`csrc/dcn_v2_bwd.cu`). Under `torch.no_grad()` the kernel
+is launched directly and nothing is saved.
 
 `dcn_v2_forward.launches` counts kernel launches, so that a run can show it
 went through the kernel. It is incremented where the kernel is launched and
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from centerpose_tpu_torch import _build
+from centerpose_tpu_torch.ops import dcn_bwd
 from centerpose_tpu_torch.ops.dcn import dcn_v2
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,30 +51,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _pixel_stride(t: torch.Tensor, name: str) -> int:
-    """Stride between pixels of a [B, H, W, n] tensor whose pixels are evenly
-    spaced in row-major order (a channel slice of a contiguous NHWC tensor is
-    such a tensor), or raise."""
-    b, h, w, n = t.shape
-    if w > 1:
-        s = t.stride(2)
-    elif h > 1:
-        s = t.stride(1)
-    elif b > 1:
-        s = t.stride(0)
-    else:
-        s = n
-    ok = (
-        (n == 1 or t.stride(3) == 1)
-        and s >= n
-        and (h == 1 or t.stride(1) == w * s)
-        and (b == 1 or t.stride(0) == h * w * s)
-    )
-    if not ok:
-        raise ValueError(
-            f"dcn_v2_forward: {name} of shape {tuple(t.shape)} has strides "
-            f"{t.stride()}; it must be NHWC with evenly spaced pixels"
-        )
-    return s
+    return dcn_bwd.pixel_stride(t, name, "dcn_v2_forward")
 
 
 def kernel_weight(weight_oihw: torch.Tensor) -> torch.Tensor:
@@ -84,45 +65,10 @@ def kernel_weight(weight_oihw: torch.Tensor) -> torch.Tensor:
     return weight_oihw.permute(2, 3, 1, 0).contiguous()
 
 
-def dcn_v2_forward(
-    x: torch.Tensor,
-    offset: torch.Tensor,
-    mask: torch.Tensor,
-    weight: torch.Tensor,
-    bias: torch.Tensor,
-) -> torch.Tensor:
-    """DCNv2 forward, 3x3 / stride 1 / pad 1 / dilation 1, NHWC.
-
-    Args:
-      x:      [B, H, W, C] contiguous.
-      offset: [B, H, W, 18], channels [2t, 2t+1] = (dy, dx) of tap t; may be
-              a channel slice of a wider contiguous NHWC tensor.
-      mask:   [B, H, W, 9] post-sigmoid gates; may be such a slice too.
-      weight: [3, 3, C, Co] (HWIO), contiguous or a view of a contiguous
-              [Co, 3, 3, C] tensor (see `kernel_weight`).
-      bias:   [Co].
-
-    Returns [B, H, W, Co] in `x.dtype`. On CUDA: float32 or bfloat16, all
-    operands of one type, C and Co multiples of 8. The output is allocated
-    here, and a copy of the weight where its memory layout is not the one the
-    kernel of that type reads ([9C, Co] for float32, [Co, 9C] for bfloat16);
-    the kernel allocates nothing and runs on the current stream without
-    synchronising.
-    """
+def _launch_forward(x, offset, mask, weight, bias) -> torch.Tensor:
+    """Check the CUDA operands, allocate the output and launch the forward
+    kernel on the current stream."""
     tensors = (x, offset, mask, weight, bias)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"dcn_v2_forward: operands on different devices: {devices}")
-    if x.device.type == "cpu":
-        return dcn_v2(x, offset, mask, weight, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"dcn_v2_forward: unsupported device {x.device}")
-
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "dcn_v2_forward: the CUDA kernel has no backward pass yet; "
-            "call it under torch.no_grad()"
-        )
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
         raise TypeError(
             "dcn_v2_forward: operands must all be float32 or all bfloat16, got "
@@ -176,6 +122,85 @@ def dcn_v2_forward(
         )
     dcn_v2_forward.launches += 1
     return out
+
+
+class DCNv2Function(torch.autograd.Function):
+    """The deformable convolution on CUDA tensors with its gradient: forward
+    is the forward kernel, backward the backward kernels. Only the four
+    operands are saved (no im2col matrix); `weight` is the HWIO tensor the
+    caller passed (a permuted view of an OIHW parameter is fine: autograd
+    carries the permute, the kernels read a [9C, Co] copy)."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias):
+        out = _launch_forward(x, offset, mask, weight, bias)
+        ctx.save_for_backward(x, offset, mask, weight)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        x, offset, mask, weight = ctx.saved_tensors
+        need_x, need_off, need_mask, need_w, need_b = ctx.needs_input_grad
+        dx = doffset = dmask = dweight = dbias = None
+        if need_x and need_w and (need_off or need_mask):
+            dx, doffset, dmask, dweight = dcn_bwd.dcn_v2_bwd_fused(x, offset, mask, weight, dout)
+        else:
+            # A frozen operand: only the kernels whose terms are asked for.
+            if need_x:
+                dx = dcn_bwd.dcn_v2_bwd_dx(x, offset, mask, weight, dout)
+            if need_off or need_mask:
+                doffset, dmask = dcn_bwd.dcn_v2_bwd_dcoord(x, offset, mask, weight, dout)
+            if need_w:
+                dweight = dcn_bwd.dcn_v2_bwd_dw(x, offset, mask, weight, dout)
+        if need_b:
+            dbias = dout.sum(dim=(0, 1, 2))
+        return (
+            dx,
+            doffset if need_off else None,
+            dmask if need_mask else None,
+            dweight,
+            dbias,
+        )
+
+
+def dcn_v2_forward(
+    x: torch.Tensor,
+    offset: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """DCNv2 forward, 3x3 / stride 1 / pad 1 / dilation 1, NHWC.
+
+    Args:
+      x:      [B, H, W, C] contiguous.
+      offset: [B, H, W, 18], channels [2t, 2t+1] = (dy, dx) of tap t; may be
+              a channel slice of a wider contiguous NHWC tensor.
+      mask:   [B, H, W, 9] post-sigmoid gates; may be such a slice too.
+      weight: [3, 3, C, Co] (HWIO), contiguous or a view of a contiguous
+              [Co, 3, 3, C] tensor (see `kernel_weight`).
+      bias:   [Co].
+
+    Returns [B, H, W, Co] in `x.dtype`. On CUDA: float32 or bfloat16, all
+    operands of one type, C and Co multiples of 8. The output is allocated
+    here, and a copy of the weight where its memory layout is not the one the
+    kernel of that type reads ([9C, Co] for float32, [Co, 9C] for bfloat16);
+    the kernel allocates nothing and runs on the current stream without
+    synchronising. Where a gradient is recorded the result carries a graph
+    whose backward is the backward kernels (float32 only).
+    """
+    tensors = (x, offset, mask, weight, bias)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"dcn_v2_forward: operands on different devices: {devices}")
+    if x.device.type == "cpu":
+        return dcn_v2(x, offset, mask, weight, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"dcn_v2_forward: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return DCNv2Function.apply(x, offset, mask, weight, bias)
+    return _launch_forward(x, offset, mask, weight, bias)
 
 
 dcn_v2_forward.launches = 0

@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py
 
-drives `centerpose_tpu_torch`'s serving path at the full width of the flagship
-model (dlav1_34 at 512x512, random weights from seed 0) through the entry
-points a user calls, builds the CUDA kernel from the sources in this checkout,
-holds it against its plain PyTorch version on the card, and shows that the
-serving path really went through it. Every phase prints one JSON line; a phase
+drives `centerpose_tpu_torch`'s serving path and its training path at the full
+width of the flagship model (dlav1_34 at 512x512, random weights from seed 0)
+through the entry points a user calls, builds the CUDA kernels from the sources
+in this checkout, holds each against its plain PyTorch version on the card, and
+shows that both paths really went through them. Every phase prints one JSON line; a phase
 that fails raises and the process exits non-zero. Without a CUDA device it
 exits with code 2 and prints no result. It imports nothing of JAX.
 
 Phases:
   env      versions, the card's name and power limit.
-  build    nvcc builds csrc/*.cu (seconds; the compiler's register / shared
-           memory report is printed).
+  build    nvcc builds csrc/*.cu, one compiler per source, all started
+           together (seconds; the compiler's register / shared memory report
+           is printed).
   kernels  `dcn_v2_forward` against `dcn_v2` on the 7 distinct DCN shapes of
            one dlav1_34 forward at 512x512, float32 and bfloat16: B=2 cases
            with uniform +-3 offsets, integer offsets, every sample off the
@@ -28,6 +29,14 @@ Phases:
            magnitude (bf16 inputs and one rounding of columns and output).
            float32 comparisons run with TF32 switched off for cuDNN and
            matmul.
+           Then the four backward kernels, float32, on the same 7 shapes:
+           `dcn_v2_grads(fused=True)` (one launch) and `(fused=False)` (the
+           dX, coordinate and dW kernels) against `dcn_v2_grads_plain`, each
+           of the five terms by name, for the four offset kinds at B=2 and
+           at the training batch B=8; tolerance per term 1e-4 of the term's
+           largest magnitude plus 1e-5 (sums of up to B*H*W or 9*C*Co
+           float32 terms, for dX and dW in the order the atomics land);
+           then times per shape at B=8.
   model    the bf16 network + decode on a [8, 512, 512, 3] batch as the JAX
            package's bench.py runs it: the kernel launches of one forward
            counted by shape (16 in all), output
@@ -40,6 +49,27 @@ Phases:
            read just after, and every shape must have been launched 4 times
            what one forward launched. Then a planted-pose PnP check on the
            card.
+
+  train    `create_train_state` + `make_train_step` for the float32 network at
+           512x512, batch 8 (lowered, and said so, only if the card's memory
+           does not hold it), on a synthetic batch from `render_targets`: a
+           warm-up step and 3 timed steps, then two fine-tuning steps (the
+           DCN weights frozen; only the DCN weights trained), which send
+           `DCNv2Function.backward` through the three single-term kernels.
+           Every launch counter is set to 0 just before and read just after.
+           Required: finite losses, the loss of the last full step below the
+           first's, every parameter's gradient finite, 16 forward and 16
+           fused-backward launches per full step, by shape as the model
+           phase counted them. Then, at 128x128 and batch 2, the network
+           through the kernels against the same network through the plain
+           DCN: every gradient with BatchNorm on running statistics within
+           1e-3 of the parameter's largest gradient (ten times the kernels'
+           tolerance, for 16 blocks in sequence), and one train step's loss
+           within 1e-4 relative and gradient within 1 % in L2 norm (through
+           thirty BatchNorms on the batch statistics of 2 images the order
+           in which the atomics land is amplified: float32 holds that
+           gradient to about a percent between two libraries, and between these
+           two routes, which share every other kernel, to about 1e-4).
 
 `--out DIR` also writes every phase's line and the kernel table to
 `DIR/chip_smoke_kernels.json`.
@@ -63,14 +93,22 @@ if not torch.cuda.is_available():
 
 from centerpose_tpu_torch import _build  # noqa: E402
 from centerpose_tpu_torch.config import preset  # noqa: E402
+from centerpose_tpu_torch.data.targets import ObjectAnnotation, render_targets, stack_batch  # noqa: E402
 from centerpose_tpu_torch.geometry.cuboid import cuboid_vertices  # noqa: E402
 from centerpose_tpu_torch.inference.detector import DEFAULT_CAMERA, Detector  # noqa: E402
 from centerpose_tpu_torch.models import layers  # noqa: E402
 from centerpose_tpu_torch.models.factory import create_model  # noqa: E402
+from centerpose_tpu_torch.ops import dcn_bwd  # noqa: E402
 from centerpose_tpu_torch.ops.dcn import dcn_v2  # noqa: E402
 from centerpose_tpu_torch.ops.dcn_fwd import dcn_v2_forward, kernel_weight  # noqa: E402
 from centerpose_tpu_torch.ops.decode import object_pose_decode  # noqa: E402
 from centerpose_tpu_torch.ops.pnp import solve_pnp_batch_padded  # noqa: E402
+from centerpose_tpu_torch.training.losses import centerpose_loss  # noqa: E402
+from centerpose_tpu_torch.training.trainer import (  # noqa: E402
+    create_train_state,
+    loss_config_from,
+    make_train_step,
+)
 
 DEVICE = torch.device("cuda")
 # `--out DIR`: also write the phases' lines and the kernel table to
@@ -98,6 +136,21 @@ TOL_BF16_REL = 3e-2
 
 KERNEL_SOURCE = "centerpose_tpu_torch/csrc/dcn_v2_fwd.cu"
 KERNEL_REPLACES = "centerpose_tpu/ops/dcn_onehot.py:237"
+
+TRAIN_BATCH = 8
+TRAIN_STEPS = 3
+# Per term of the gradient: |err| <= TOL_BWD_REL * max|plain| + TOL_BWD_ABS.
+TOL_BWD_REL = 1e-4
+TOL_BWD_ABS = 1e-5
+GRAD_NAMES = ("dx", "doffset", "dmask", "dweight", "dbias")
+BWD_SOURCE = "centerpose_tpu_torch/csrc/dcn_v2_bwd.cu"
+# name -> (wrapper, the TPU kernel it replaces, products it runs, terms it yields)
+BWD_KERNELS = {
+    "dcn_v2_bwd_fused": (dcn_bwd.dcn_v2_bwd_fused, "centerpose_tpu/ops/dcn_bwd.py:246", 2, (0, 1, 2, 3)),
+    "dcn_v2_bwd_dx": (dcn_bwd.dcn_v2_bwd_dx, "centerpose_tpu/ops/dcn_bwd.py:121", 1, (0,)),
+    "dcn_v2_bwd_dcoord": (dcn_bwd.dcn_v2_bwd_dcoord, "centerpose_tpu/ops/dcn_bwd.py:159", 1, (1, 2)),
+    "dcn_v2_bwd_dw": (dcn_bwd.dcn_v2_bwd_dw, "centerpose_tpu/ops/dcn_bwd.py:203", 1, (3,)),
+}
 
 
 def require(cond, message) -> None:
@@ -150,13 +203,22 @@ def phase_env() -> str:
     return smi
 
 
+def reset_launches() -> None:
+    dcn_v2_forward.launches = 0
+    for fn, *_ in BWD_KERNELS.values():
+        fn.launches = 0
+
+
 # ------------------------------------------------------------------- build
 def phase_build() -> None:
     t0 = time.time()
     logs = _build.build_all()
-    dcn_v2_forward(*make_case(0, 1, 8, 8, 8, torch.float32, "uniform"))
+    args = make_case(0, 1, 8, 8, 8, torch.float32, "uniform")
+    dout = dcn_v2_forward(*args)
+    for fused in (True, False):                          # loads every entry point
+        dcn_bwd.dcn_v2_grads(*args, dout, fused=fused)
     torch.cuda.synchronize()
-    dcn_v2_forward.launches = 0
+    reset_launches()
     report = {
         name: [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln or "error" in ln]
         for name, log in logs.items()
@@ -275,6 +337,81 @@ def phase_kernels():
           "worst_f32_abs": max(e["max_abs_err_f32"] for e in entries),
           "worst_bf16_rel": max(e["max_rel_err"] for e in entries)})
     return entries
+
+
+# -------------------------------------------------------- backward kernels
+def make_dout(seed, b, hw, co):
+    rng = np.random.RandomState(seed + 1000)
+    return torch.from_numpy(rng.randn(b, hw, hw, co).astype(np.float32)).to(DEVICE)
+
+
+def bwd_bound_ms(b, hw, c, co, products, terms):
+    """Least time the card could take for one backward kernel, float32:
+    max(2 * B*HW * 9C * Co operations per product / FMA peak, bytes / memory
+    rate) with each input read once (offset, mask, dout; x unless the kernel
+    is the dX one; W unless it is the dW one) and each output written once."""
+    m = b * hw * hw
+    flops = products * 2.0 * m * 9 * c * co
+    elems = m * (18 + 9 + co)                                        # offset, mask, dout
+    elems += m * c if terms != (0,) else 0                           # x
+    elems += 9 * c * co if terms != (3,) else 0                      # W
+    elems += sum(n for i, n in enumerate((m * c, m * 18, m * 9, 9 * c * co)) if i in terms)
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = 4 * elems / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_grads(args, dout, what):
+    """Every term of the fused and of the split route against the plain
+    version; returns the worst |err| per kernel name."""
+    ref = dcn_bwd.dcn_v2_grads_plain(*args, dout)
+    worst = {name: 0.0 for name in BWD_KERNELS}
+    for fused in (True, False):
+        got = dcn_bwd.dcn_v2_grads(*args, dout, fused=fused)
+        torch.cuda.synchronize()
+        for i, (name, g, r) in enumerate(zip(GRAD_NAMES, got, ref)):
+            require(g.shape == r.shape and g.dtype == r.dtype, f"{what}: {name} has the wrong shape or type")
+            require(torch.isfinite(g).all(), f"{what}: {name} not finite")
+            err = (g - r).abs().max().item()
+            limit = TOL_BWD_REL * r.abs().max().item() + TOL_BWD_ABS
+            require(err <= limit, f"{what} fused={fused}: {name} off by {err}, limit {limit}")
+            for kname, (_, _, _, terms) in BWD_KERNELS.items():
+                if i in terms and (kname == "dcn_v2_bwd_fused") == fused:
+                    worst[kname] = max(worst[kname], err)
+    return worst
+
+
+def phase_kernels_bwd():
+    """The four backward kernels on the 7 production shapes, float32."""
+    cases = [(20 + s, 2, k) for s, k in enumerate(("uniform", "integer", "off_image", "dy20"))]
+    cases.append((30, TRAIN_BATCH, "uniform"))
+    per_shape = {name: [] for name in BWD_KERNELS}
+    n_cases = 0
+    for hw, c, co in PRODUCTION_SHAPES:
+        worst = {name: 0.0 for name in BWD_KERNELS}
+        for seed, b, kind in cases:
+            args = make_case(seed, b, hw, c, co, torch.float32, kind)
+            dout = make_dout(seed, b, hw, co)
+            got = check_grads(args, dout, f"shape {(b, hw, hw, c, co)} {kind}")
+            worst = {k: max(worst[k], got[k]) for k in worst}
+            n_cases += 1
+        # `args`, `dout` are now the last case, at the training batch: the times.
+        plain_ms = time_ms(lambda: dcn_bwd.dcn_v2_grads_plain(*args, dout), iters=2, warmup=1)
+        for name, (fn, _, products, terms) in BWD_KERNELS.items():
+            ms = time_ms(lambda: fn(*args[:4], dout), iters=10)
+            bound, bound_by = bwd_bound_ms(TRAIN_BATCH, hw, c, co, products, terms)
+            per_shape[name].append({
+                "shape": [TRAIN_BATCH, hw, hw, c, co], "max_abs_err": worst[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            })
+        del args, dout
+    torch.cuda.empty_cache()
+    reset_launches()
+    emit({"phase": "kernels_bwd", "cases": n_cases, "dtype": "float32",
+          "tolerance": {"rel_to_term_max": TOL_BWD_REL, "abs": TOL_BWD_ABS},
+          "plain": "dcn_v2_grads_plain (all five terms; the yardstick of every kernel)",
+          "library": None, "per_shape": per_shape})
+    return per_shape
 
 
 # ------------------------------------------------------------------- model
@@ -470,16 +607,278 @@ def phase_serve(cfg, state_dict):
     return launches, shape_counts
 
 
+# ------------------------------------------------------------------- train
+def synthetic_batch(cfg, batch_size: int, seed: int):
+    """One object per image at the centre of the map with random keypoints,
+    rendered by `render_targets`, and a random image; tensors on the card."""
+    rng = np.random.RandomState(seed)
+    out_res = cfg.output_h
+    samples = []
+    for _ in range(batch_size):
+        obj = ObjectAnnotation(
+            center=np.array([out_res / 2.0, out_res / 2.0]),
+            size=np.array([out_res / 2.0, out_res / 2.0]),
+            keypoints=rng.uniform(out_res / 4, 3 * out_res / 4, size=(1, 8, 2)).astype(np.float32),
+            keypoints_visible=np.ones((1, 8), bool),
+            scale_3d=np.array([1.0, 1.0, 1.0], np.float32),
+        )
+        samples.append(render_targets([obj], cfg))
+    batch = stack_batch(samples)
+    batch["input"] = rng.randn(batch_size, cfg.input_h, cfg.input_w, 3).astype(np.float32)
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def train_model(cfg):
+    model = create_model(cfg, DEVICE, generator=torch.Generator().manual_seed(0))
+    randomize_offset_convs(model, seed=0)
+    return model
+
+
+def count_dcn_backward_shapes(model, counter: Counter):
+    """Forward hooks that hang a gradient hook on every DCN output, counting
+    the backward passes through the DCN blocks by (H, C, Co)."""
+    def hook(mod, inputs, output):
+        if output.requires_grad:
+            key = (inputs[0].shape[2], inputs[0].shape[1], output.shape[1])
+            output.register_hook(lambda grad, key=key: counter.update([key]))
+    return [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, layers.DCN)]
+
+
+def timed_step(step, state, batch):
+    t0 = time.perf_counter()
+    state, stats = step(state, batch)
+    loss = stats["loss"].item()                          # waits for the device
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, loss
+
+
+def flat_grads(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
+
+
+def l2(tensors) -> float:
+    return float(torch.sqrt(sum((t.double() ** 2).sum() for t in tensors)))
+
+
+def phase_train(per_forward, fwd_entries, bwd_per_shape):
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_launches = Counter()                             # forward launches by shape
+
+    # ---- the main path: full steps, then two fine-tuning steps ------------
+    reset_launches()
+    batch_size = TRAIN_BATCH
+    while True:
+        cfg = preset("centerpose", input_h=INPUT, input_w=INPUT, batch_size=batch_size)
+        model = train_model(cfg)
+        state, tx = create_train_state(cfg, model, steps_per_epoch=1000)
+        step = make_train_step(cfg, model, tx)
+        batch = synthetic_batch(cfg, batch_size, seed=2)
+        fwd_shapes, bwd_shapes = Counter(), Counter()
+        hooks = count_dcn_shapes(model, fwd_shapes) + count_dcn_backward_shapes(model, bwd_shapes)
+        try:
+            first = timed_step(step, state, batch)       # also the warm-up
+            break
+        except torch.cuda.OutOfMemoryError:
+            # The card does not hold the step at this batch: halve it (never
+            # the width, depth or resolution) and say so in the result.
+            require(batch_size > 1, "one image does not fit in the card's memory")
+            del model, state, tx, step, batch, hooks
+            torch.cuda.empty_cache()
+            reset_launches()
+            batch_size //= 2
+    timed = [timed_step(step, state, batch) for _ in range(TRAIN_STEPS)]
+    # The same steps with cuDNN's convolutions allowed TF32, PyTorch's own
+    # default (it has been off since the kernels phase): one step to let
+    # cuDNN choose again, then the timed ones.
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        first_tf32 = timed_step(step, state, batch)
+        timed_tf32 = [timed_step(step, state, batch) for _ in range(TRAIN_STEPS)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    steps = 2 * (1 + TRAIN_STEPS)
+    losses = [loss for _, loss in [first] + timed + [first_tf32] + timed_tf32]
+    for h in hooks:
+        h.remove()
+    grads = flat_grads(model)
+    n_params = sum(1 for _ in model.parameters())
+
+    require(all(np.isfinite(losses)), f"losses not finite: {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall on the same batch: {losses}")
+    require(len(grads) == n_params, f"{n_params - len(grads)} parameters have no gradient")
+    require(all(torch.isfinite(g).all() for g in grads.values()), "a gradient is not finite")
+    offset_grads = [g for k, g in grads.items() if "conv_offset_mask" in k]
+    require(len(offset_grads) == 32 and all(g.abs().max() > 0 for g in offset_grads),
+            "an offset conv got no gradient")
+    require(dcn_v2_forward.launches == 16 * steps, f"{dcn_v2_forward.launches} forward launches in {steps} steps")
+    require(dcn_bwd.dcn_v2_bwd_fused.launches == 16 * steps,
+            f"{dcn_bwd.dcn_v2_bwd_fused.launches} fused backward launches in {steps} steps")
+    for shape, n in per_forward.items():
+        require(fwd_shapes[shape] == steps * n and bwd_shapes[shape] == steps * n,
+                f"shape {shape}: {fwd_shapes[shape]} forward / {bwd_shapes[shape]} backward "
+                f"passes in {steps} steps, {n} per forward in the model phase")
+    require(sum(bwd_shapes.values()) == dcn_bwd.dcn_v2_bwd_fused.launches,
+            "backward passes by shape differ from the fused kernel's counter")
+    fwd_launches.update(fwd_shapes)
+    full_step_memory = torch.cuda.max_memory_allocated()
+    step_ms = sorted(ms for ms, _ in timed)[len(timed) // 2]
+    step_ms_tf32 = sorted(ms for ms, _ in timed_tf32)[len(timed_tf32) // 2]
+
+    # Fine-tuning, through the same entry points: (a) the DCN weights frozen,
+    # so that `DCNv2Function.backward` runs the dX and the coordinate kernel;
+    # (b) nothing but the DCN weights and biases trained, so that the blocks
+    # that read the frozen trunk run the dW kernel alone.
+    finetune = {}
+    dcns = [m for m in model.modules() if isinstance(m, layers.DCN)]
+    for name, trainable in (
+        ("dcn_weights_frozen", lambda p, own: not own),
+        ("only_dcn_weights", lambda p, own: own),
+    ):
+        own = {id(m.weight) for m in dcns} | {id(m.bias) for m in dcns}
+        for p in model.parameters():
+            p.requires_grad_(trainable(p, id(p) in own))
+        before = {k: fn.launches for k, (fn, *_rest) in BWD_KERNELS.items()}
+        frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not p.requires_grad}
+        state_ft, tx_ft = create_train_state(cfg, model, steps_per_epoch=1000)
+        fwd_ft = Counter()
+        hooks = count_dcn_shapes(model, fwd_ft)
+        ms, loss = timed_step(make_train_step(cfg, model, tx_ft), state_ft, batch)
+        for h in hooks:
+            h.remove()
+        require(np.isfinite(loss), f"fine-tuning step {name}: loss {loss}")
+        params = dict(model.named_parameters())
+        require(all(torch.equal(params[k], v) for k, v in frozen.items()),
+                f"fine-tuning step {name}: a frozen parameter changed")
+        del frozen
+        delta = {k: fn.launches - before[k] for k, (fn, *_rest) in BWD_KERNELS.items()}
+        finetune[name] = {"ms": ms, "loss": loss, "backward_launches": delta}
+        fwd_launches.update(fwd_ft)
+    ft = finetune["dcn_weights_frozen"]["backward_launches"]
+    require(ft == {"dcn_v2_bwd_fused": 0, "dcn_v2_bwd_dx": 16, "dcn_v2_bwd_dcoord": 16, "dcn_v2_bwd_dw": 0},
+            f"DCN weights frozen: backward launches {ft}")
+    ft = finetune["only_dcn_weights"]["backward_launches"]
+    require(ft["dcn_v2_bwd_dw"] > 0 and ft["dcn_v2_bwd_dw"] + ft["dcn_v2_bwd_fused"] == 16
+            and ft["dcn_v2_bwd_dx"] == 0 and ft["dcn_v2_bwd_dcoord"] == 0,
+            f"only DCN weights trained: backward launches {ft}")
+    counts = {"dcn_v2_fwd": dcn_v2_forward.launches,
+              **{k: fn.launches for k, (fn, *_rest) in BWD_KERNELS.items()}}   # ---- the main path ends
+    require(counts["dcn_v2_fwd"] == 16 * (steps + 2), f"{counts['dcn_v2_fwd']} forward launches on the training path")
+    peak_memory = torch.cuda.max_memory_allocated()
+    del model, state, tx, step, batch, grads, state_ft, tx_ft, params
+    torch.cuda.empty_cache()
+
+    # Share of a full step inside its 16 + 16 DCN launches, from this run's
+    # per-call times at the same shapes and batch (kernels phases).
+    fwd_ms = {tuple(e["shape"][1:2] + e["shape"][3:]): e["ms_f32"] for e in fwd_entries}
+    bwd_ms = {tuple(e["shape"][1:2] + e["shape"][3:]): e["ms"] for e in bwd_per_shape["dcn_v2_bwd_fused"]}
+    dcn_fwd_ms = sum(n * fwd_ms[shape] for shape, n in per_forward.items())
+    dcn_bwd_ms = sum(n * bwd_ms[shape] for shape, n in per_forward.items())
+
+    # ---- kernels against the plain DCN through the whole network, 128x128 ---
+    small = preset("centerpose", input_h=128, input_w=128, batch_size=2)
+    batch = synthetic_batch(small, 2, seed=3)
+    loss_cfg = loss_config_from(small)
+    real = layers.dcn_v2_forward
+
+    def through(route, fn):
+        """fn(model) on a fresh copy of the same network, DCN through `route`."""
+        model = train_model(small)
+        layers.dcn_v2_forward = route
+        try:
+            return fn(model)
+        finally:
+            layers.dcn_v2_forward = real
+
+    def running_stats_grads(model):
+        model.eval()                                     # BatchNorm on running statistics
+        loss = centerpose_loss(model(batch["input"]), batch, loss_cfg, "train")[0]
+        loss.backward()
+        return loss.item(), flat_grads(model)
+
+    def one_step(model):
+        state, tx = create_train_state(small, model, steps_per_epoch=1000)
+        _, stats = make_train_step(small, model, tx)(state, batch)
+        return stats["loss"].item(), flat_grads(model)
+
+    worst_rel = 0.0
+    loss_k, grads_k = through(real, running_stats_grads)
+    loss_p, grads_p = through(dcn_v2, running_stats_grads)
+    require(set(grads_k) == set(grads_p), "kernel and plain routes give gradients to different parameters")
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"128x128 loss: kernels {loss_k}, plain {loss_p}")
+    for k, ref in grads_p.items():
+        err = (grads_k[k] - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        require(err <= 1e-3 * scale + 1e-6, f"128x128, running statistics: gradient of {k} off by {err} (max {scale})")
+        worst_rel = max(worst_rel, err / max(scale, 1e-6))
+    step_loss_k, step_k = through(real, one_step)
+    step_loss_p, step_p = through(dcn_v2, one_step)
+    require(abs(step_loss_k - step_loss_p) <= 1e-4 * abs(step_loss_p),
+            f"128x128 train step loss: kernels {step_loss_k}, plain {step_loss_p}")
+    step_rel = l2([step_k[k] - step_p[k] for k in step_p]) / l2(step_p.values())
+    require(step_rel <= 0.01, f"128x128 train step: gradients differ by {step_rel} in L2 norm")
+
+    emit({
+        "phase": "train", "arch": cfg.arch, "input": [batch_size, INPUT, INPUT, 3], "dtype": "float32",
+        "batch": batch_size, "batch_lowered_for_memory": batch_size != TRAIN_BATCH,
+        "steps": steps, "losses": losses, "ms_per_step_each": [ms for ms, _ in timed],
+        "first_step_ms": first[0], "ms_per_step": step_ms, "images_per_s": batch_size / (step_ms * 1e-3),
+        "tf32": "off for cuDNN and matmul in ms_per_step; ms_per_step_cudnn_tf32 allows it for cuDNN",
+        "ms_per_step_cudnn_tf32": step_ms_tf32, "images_per_s_cudnn_tf32": batch_size / (step_ms_tf32 * 1e-3),
+        "launches": counts, "launches_per_step": {"dcn_v2_fwd": 16, "dcn_v2_bwd_fused": 16},
+        "launches_per_step_by_shape": {"x".join(map(str, k)): v for k, v in per_forward.items()},
+        "dcn_forward_ms_per_step": dcn_fwd_ms, "dcn_backward_ms_per_step": dcn_bwd_ms,
+        "dcn_share_of_step": (dcn_fwd_ms + dcn_bwd_ms) / step_ms,
+        "peak_memory_mb": peak_memory / 2 ** 20, "peak_memory_full_step_mb": full_step_memory / 2 ** 20,
+        "finetune": finetune,
+        "kernels_vs_plain_128": {
+            "running_statistics": {"loss": [loss_k, loss_p], "worst_grad_err_rel_to_param_max": worst_rel,
+                                   "limit": 1e-3},
+            "train_step": {"loss": [step_loss_k, step_loss_p], "grad_rel_l2": step_rel, "limit": 0.01},
+        },
+    })
+    return fwd_launches, counts
+
+
+def backward_entries(bwd_per_shape, per_forward, counts):
+    """One entry per backward kernel: error the worst over the 7 shapes,
+    times and bound summed over the 16 calls of one train step (each shape
+    times the number of blocks of that shape), launches from the train phase."""
+    entries = []
+    for name, (_, replaces, _, _) in BWD_KERNELS.items():
+        rows = bwd_per_shape[name]
+        weight = [per_forward[tuple(r["shape"][1:2] + r["shape"][3:])] for r in rows]
+        by = Counter()
+        for n, r in zip(weight, rows):
+            by[r["bound_by"]] += n * r["bound_ms"]
+        entries.append({
+            "name": name, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
+            "dtype": "float32", "launches": counts[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(n * r["ms"] for n, r in zip(weight, rows)),
+            "plain_ms": sum(n * r["plain_ms"] for n, r in zip(weight, rows)),
+            "bound_ms": sum(n * r["bound_ms"] for n, r in zip(weight, rows)),
+            "bound_by": by.most_common(1)[0][0],
+            "library_ms": None,
+            "times_are": "sums over the 16 DCN calls of one train step at batch %d" % TRAIN_BATCH,
+            "per_shape": rows,
+        })
+        require(counts[name] > 0, f"the training path never launched {name}")
+    return entries
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_env()
     phase_build()
     entries = phase_kernels()
+    bwd_per_shape = phase_kernels_bwd()
     cfg, state, per_forward = phase_model()
     launches, shape_counts = phase_serve(cfg, state)
+    train_fwd_launches, train_counts = phase_train(per_forward, entries, bwd_per_shape)
 
-    # Both counts are this run's: one forward of the model phase, and the
-    # serve phase's four forwards (3 `run` + 1 `run_batch`).
+    # All counts are this run's: one forward of the model phase, the serve
+    # phase's four forwards (3 `run` + 1 `run_batch`), the train phase's steps.
     for e in entries:
         _, hw, _, c, co = e["shape"]
         e["launches_per_forward"] = per_forward.get((hw, c, co), 0)
@@ -488,8 +887,12 @@ def main() -> int:
         require(e["launches"] == 4 * e["launches_per_forward"],
                 f"{e['shape']}: {e['launches']} launches in 4 served forwards, "
                 f"{e['launches_per_forward']} in the model phase's one")
+        e["launches_train"] = train_fwd_launches.get((hw, c, co), 0)
+        require(e["launches_train"] > 0, f"the training path never launched the forward kernel at {e['shape']}")
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
-    summary = {"kernels": entries}
+    require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
+            "training launches by shape do not add up to the counter")
+    summary = {"kernels": entries + backward_entries(bwd_per_shape, per_forward, train_counts)}
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     if OUT_DIR:
         os.makedirs(OUT_DIR, exist_ok=True)

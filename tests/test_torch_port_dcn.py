@@ -241,7 +241,7 @@ def test_build_module_names_sources_and_fails_without_nvcc(monkeypatch, tmp_path
     the build raises (there is no fallback)."""
     from centerpose_tpu_torch import _build
 
-    assert _build.sources() == ["dcn_v2_fwd"]
+    assert _build.sources() == ["dcn_v2_bwd", "dcn_v2_fwd"]
     path = _build.library_path("dcn_v2_fwd")
     assert path.parent == _build.BUILD and path.suffix == ".so"
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-DX"])
