@@ -7,9 +7,12 @@ reference this package is held against; nothing here imports it, or JAX.
 What is here: the serving path of the image model — `dla_34` / `dlav1_34`
 networks, the fused decode, batched PnP, on-device resampling and the
 `Detector` around them — with the deformable convolution's forward pass as a
-hand-written CUDA kernel (`csrc/dcn_v2_fwd.cu`, wrapped by `ops/dcn_fwd.py`).
-Training, tracking, evaluation and the other architectures are not ported
-yet; ROADMAP.md lists them in order.
+hand-written CUDA kernel (`csrc/dcn_v2_fwd.cu`, wrapped by `ops/dcn_fwd.py`);
+the train step, whose backward pass runs the hand-written kernels of
+`csrc/dcn_v2_bwd.cu`; and the CenterPoseTrack video path (the dla_34
+tracking model, `tracking/`, the `Detector`'s tracking branch and the demo,
+`python -m centerpose_tpu_torch.demo`). Evaluation, the training CLI and the
+other architectures are not ported yet; ROADMAP.md lists them in order.
 
 Entry points take an explicit `device` and default to `"cuda"`; asked for
 `"cuda"` on a host without one they raise. Importing the package needs no

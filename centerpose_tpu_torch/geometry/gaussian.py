@@ -77,27 +77,27 @@ def render_gaussians(
     width: int,
 ) -> torch.Tensor:
     """Rasterise N gaussians into a (height, width) map, max-composited, on the
-    device of `centers`.
+    device of `centers`; leading dimensions render several maps in one call.
 
     Args:
-      centers:    (N, 2) float (x, y) in output-map pixels.
-      radii:      (N,) float radius per gaussian (sigma = (2r+1)/6).
-      amplitudes: (N,) peak value per gaussian (confidence-scaled heat).
-      valid:      (N,) bool mask; invalid entries contribute nothing.
+      centers:    (..., N, 2) float (x, y) in output-map pixels.
+      radii:      (..., N) float radius per gaussian (sigma = (2r+1)/6).
+      amplitudes: (..., N) peak value per gaussian (confidence-scaled heat).
+      valid:      (..., N) bool mask; invalid entries contribute nothing.
 
-    Dense evaluation over the full map per gaussian, reduced with max:
-    O(N*H*W) elementwise work, no scatter.
+    Returns (..., height, width). Dense evaluation over the full map per
+    gaussian, reduced with max: O(N*H*W) elementwise work, no scatter.
     """
     dev = centers.device
     ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None]   # H x 1
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]    # 1 x W
 
-    cx = centers[:, 0][:, None, None]                                     # N x 1 x 1
-    cy = centers[:, 1][:, None, None]
+    cx = centers[..., 0][..., None, None]                                 # ... x N x 1 x 1
+    cy = centers[..., 1][..., None, None]
     sigma = (2.0 * radii + 1.0) / 6.0
-    sigma = sigma.clamp_min(1e-6)[:, None, None]
-    amp = torch.where(valid, amplitudes, torch.zeros_like(amplitudes))[:, None, None]
+    sigma = sigma.clamp_min(1e-6)[..., None, None]
+    amp = torch.where(valid, amplitudes, torch.zeros_like(amplitudes))[..., None, None]
 
-    d2 = (xs[None] - cx) ** 2 + (ys[None] - cy) ** 2                      # N x H x W
+    d2 = (xs - cx) ** 2 + (ys - cy) ** 2                                  # ... x N x H x W
     g = amp * torch.exp(-d2 / (2.0 * sigma ** 2))
-    return g.max(dim=0).values
+    return g.max(dim=-3).values

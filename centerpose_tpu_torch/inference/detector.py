@@ -1,5 +1,6 @@
 """End-to-end CenterPose detector pipeline, counterpart of
-`centerpose_tpu/inference/detector.py` for the image model.
+`centerpose_tpu/inference/detector.py`: the image model and the
+CenterPoseTrack video model.
 
 Parity target: `BaseDetector.run` orchestration (src/lib/detectors/base_detector.py:
 390-772) + `ObjectPoseDetector.{process,post_process,merge_outputs}`
@@ -10,18 +11,27 @@ Stages:
   `pre`   host: crop window and meta; the warp itself runs on the device
           (`ops/resample.py`) in the usual fixed-resolution mode, on the host
           (numpy) in the multi-scale / fix_short / keep-resolution modes.
-  `net`   device: warp → network forward → sigmoid → decode, then ONE fetch of
-          the decoded detections to the host.
+  `net`   device: warp → (tracking: previous-frame heatmap render) →
+          network forward → sigmoid → decode, then ONE fetch of the decoded
+          detections to the host.
   `post`  host: map coords back to image space (tiny, K×2 points).
-  `merge` host: threshold + soft-NMS over <K boxes.
+  `merge` host: threshold + soft-NMS over <K boxes; for tracking, the
+          inverse-variance fusion of the two keypoint estimates.
   `pnp`   device: batched DLT/EPnP+LM PnP over all surviving boxes at once.
+  `track` host + device: association, Kalman filter and scale pool on the
+          host, then one batched re-PnP of every track on the device
+          (`tracking/tracker.py`).
 
 Per-stage wall-clock timing is reported with the reference's stage names
-(tot/pre/net/dec/post/merge/pnp — demo.py:54-57).
+(tot/pre/net/dec/post/merge/pnp/track — demo.py:54-57).
 
-Not ported yet (they belong to the tracking model): `gaussian_fusion`, the
-tracker hooks, the previous-frame inputs and the debug canvases.
-`cfg.tracking_task` and `cfg.refined_kalman` raise `NotImplementedError`.
+Tracking (`cfg.tracking_task`, the dla_34 CenterPoseTrack model) runs one
+frame per `run` call. The first frame of a video warps on the host, because
+there is no previous frame yet; every later frame sends the uint8 frame to the
+device, where warp, previous-frame render, network and decode run without a
+fetch in between. `cfg.refined_kalman` puts the CenterPose + Kalman baseline
+tracker behind the image model. Not ported: the debug canvases
+(`render_debug`).
 """
 
 from __future__ import annotations
@@ -43,6 +53,11 @@ from centerpose_tpu_torch.ops.resample import (
     axis_aligned,
     preprocess_on_device,
     warp_axis_aligned_batch,
+)
+from centerpose_tpu_torch.tracking.render import (
+    render_inputs,
+    render_maps,
+    render_previous_heatmaps,
 )
 
 # Post-process std scale factor (src/lib/utils/post_process.py:15).
@@ -110,7 +125,11 @@ def _fetch(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 class Detector:
-    """Single-category CenterPose detector (image model)."""
+    """Single-category CenterPose detector (image model or tracking model).
+
+    Setting `cfg` on a tracking detector also sets the tracker's (the JAX
+    package's detector leaves the tracker on the old config; its
+    `scripts/bench_e2e.py` swaps the config and so never spawned tracks)."""
 
     def __init__(
         self,
@@ -119,13 +138,19 @@ class Detector:
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ):
-        if config.tracking_task or config.refined_kalman:
-            raise NotImplementedError(
-                "tracking (tracking_task / refined_kalman) is not ported to "
-                "centerpose_tpu_torch yet; see ROADMAP.md"
-            )
-        self.cfg = config
         self.device = torch.device(device)
+        self.tracker = None
+        if config.tracking_task:
+            from centerpose_tpu_torch.tracking.tracker import Tracker
+
+            self.tracker = Tracker(config, self.device)
+        elif config.refined_kalman:
+            # CenterPose + KF baseline (base_detector.py:664-665).
+            from centerpose_tpu_torch.tracking.tracker_baseline import TrackerBaseline
+
+            self.tracker = TrackerBaseline(config, self.device)
+        self.cfg = config
+        self.pre_images: Optional[torch.Tensor] = None   # previous frame, NHWC
         self.model = create_model(
             config, self.device, generator=torch.Generator().manual_seed(seed)
         )
@@ -134,19 +159,31 @@ class Detector:
         self.mean = np.array(DATA_MEAN, np.float32).reshape(1, 1, 3)
         self.std = np.array(DATA_STD, np.float32).reshape(1, 1, 3)
 
+    @property
+    def cfg(self) -> CenterPoseConfig:
+        return self._cfg
+
+    @cfg.setter
+    def cfg(self, config: CenterPoseConfig) -> None:
+        self._cfg = config
+        if self.tracker is not None:
+            self.tracker.cfg = config
+
     # ------------------------------------------------------------------ net+dec
     @torch.no_grad()
-    def _forward_decode(self, images: torch.Tensor):
-        """Normalised NHWC float images → (head maps, decoded detections)."""
+    def _forward_decode(self, images: torch.Tensor, pre_img=None, pre_hm=None,
+                        pre_hm_hp=None):
+        """Normalised NHWC float images (and, for the tracking model, the
+        NHWC previous-frame inputs) → (head maps, decoded detections)."""
         cfg = self.cfg
-        outputs = self.model(images)
+        outputs = self.model(images, pre_img, pre_hm, pre_hm_hp)
         dets = object_pose_decode(
             outputs,
             k=cfg.K,
             rep_mode=cfg.rep_mode,
             inference=True,
             # decode.py:222: gaussian fitting runs for tracking / refined-KF / rep 2.
-            fit_gaussian=cfg.rep_mode == 2,
+            fit_gaussian=cfg.tracking_task or cfg.refined_kalman or cfg.rep_mode == 2,
             apply_sigmoid=True,
             balance_coefficient=cfg.balance_coefficient,
             hm_hp_thresh=cfg.hm_hp_thresh,
@@ -154,13 +191,22 @@ class Detector:
         return outputs, dets
 
     @torch.no_grad()
-    def _forward_decode_raw(self, raw: torch.Tensor, transforms: torch.Tensor):
+    def _forward_decode_raw(self, raw: torch.Tensor, transforms: torch.Tensor,
+                            render_params=None):
         """uint8 frames + axis-aligned dst→src transforms in, decoded
         detections out: warp, normalisation, network and decode all on the
-        device, nothing fetched in between."""
+        device, nothing fetched in between. For the tracking model
+        `render_params` (the host slot arrays of `tracking/render.py::
+        render_inputs`) are rendered into the previous-frame heatmaps on the
+        device between the warp and the network, whose previous-frame image
+        is `self.pre_images`."""
         cfg = self.cfg
         images = warp_axis_aligned_batch(raw, transforms, cfg.input_h, cfg.input_w)
-        outputs, dets = self._forward_decode(images)
+        pre = ()
+        if render_params is not None:
+            maps = render_maps(*render_params, cfg.input_h, cfg.input_w, self.device)
+            pre = (self.pre_images, *(m.permute(0, 2, 3, 1) for m in maps))
+        outputs, dets = self._forward_decode(images, *pre)
         return images, outputs, dets
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
@@ -328,6 +374,32 @@ class Detector:
             results = [results[i] for i in keep]
         return results
 
+    # ------------------------------------------------------------------ fusion
+    def gaussian_fusion(self, det: dict) -> None:
+        """Inverse-variance fusion of displacement vs heatmap keypoints
+        (base_detector.py:502-544). Mutates det in place."""
+        hm_mean = det["kps_heatmap_mean"]
+        hm_std = det["kps_heatmap_std"]
+        d_mean = det["kps_displacement_mean"]
+        d_std = det["kps_displacement_std"]
+
+        heat_bad = (hm_mean < 0) | (hm_std < 0)
+        if self.cfg.hps_uncertainty:
+            var_d = np.maximum(d_std, 1e-9) ** -2.0
+            var_h = np.maximum(hm_std, 1e-9) ** -2.0
+            std_f = (var_d + var_h) ** -0.5
+            mean_f = std_f ** 2 * (var_d * d_mean + var_h * hm_mean)
+            std = np.where(heat_bad, d_std, std_f)
+            mean = np.where(heat_bad, d_mean, mean_f)
+        else:
+            std_f = np.maximum(hm_std, 1e-9) / np.sqrt(2)
+            var_h = np.maximum(hm_std, 1e-9) ** -2.0
+            mean_f = std_f ** 2 * (var_h * d_mean + var_h * hm_mean)
+            std = np.where(heat_bad, 20.0, std_f)
+            mean = np.where(heat_bad, d_mean, mean_f)
+        det["kps_fusion_mean"] = mean
+        det["kps_fusion_std"] = std
+
     # ------------------------------------------------------------------ pnp
     def _pnp_points(self, det: dict) -> np.ndarray:
         """Assemble the PnP point set for a detection by rep_mode
@@ -473,15 +545,21 @@ class Detector:
         times = {"pre": 0.0, "net": 0.0, "post": 0.0}
         t0 = time.time()
 
+        scales = (1.0,) if cfg.tracking_task else tuple(cfg.test_scales)
         detections = []
         meta = None
-        for scale in tuple(cfg.test_scales):
+        for scale in scales:
             ts = time.time()
             # Device-warp path: the standard fix_res crop at scale 1 is
             # axis-aligned, so the raw uint8 frame goes to the device and the
-            # warp runs there, ahead of the network. Multi-scale / fix_short /
-            # keep-res runs keep the host warp (non-standard windows).
-            fused = scale == 1.0 and cfg.fix_res and cfg.fix_short <= 0
+            # warp (and for tracking the previous-frame render) runs there,
+            # ahead of the network. Multi-scale / fix_short / keep-res runs
+            # keep the host warp (non-standard windows); so does a tracking
+            # video's FIRST frame (there is no previous frame to pass yet).
+            fused = (
+                scale == 1.0 and cfg.fix_res and cfg.fix_short <= 0
+                and not (cfg.tracking_task and self.pre_images is None)
+            )
             if fused:
                 images, meta_s = self.pre_process(
                     image, meta_inp, scale=scale, warp=False
@@ -501,9 +579,17 @@ class Detector:
             times["pre"] += t1 - ts
 
             if fused:
-                _, _, dets = self._forward_decode_raw(raw, invs)
+                render_params = None
+                if cfg.tracking_task:
+                    tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
+                    render_params = render_inputs(tracks, meta_s, cfg)
+                images_t, _, dets = self._forward_decode_raw(raw, invs, render_params)
             else:
-                _, dets = self._forward_decode(self._to_device(images))
+                images_t = self._to_device(images)
+                extra = ()
+                if cfg.tracking_task:
+                    extra = self._tracking_inputs(images_t, meta_s)
+                _, dets = self._forward_decode(images_t, *extra)
             dets = _fetch(dets)  # one transfer; it also waits for the device
             t2 = time.time()
             times["net"] += t2 - t1
@@ -532,10 +618,21 @@ class Detector:
         t4 = time.time()
         times["merge"] = t4 - t3
 
+        if cfg.tracking_task or cfg.refined_kalman:
+            for det in results:
+                self.gaussian_fusion(det)
+
         boxes = self.run_pnp(results, meta)
         t5 = time.time()
         times["pnp"] = t5 - t4
-        times["tot"] = t5 - t0
+
+        if self.tracker is not None:
+            results, boxes = self.tracker.step(results, boxes, meta)
+            if cfg.tracking_task:
+                self.pre_images = images_t
+        t6 = time.time()
+        times["track"] = t6 - t5
+        times["tot"] = t6 - t0
 
         return {
             "results": results,
@@ -543,6 +640,27 @@ class Detector:
             "meta": meta,
             "times": times,
         }
+
+    def _tracking_inputs(self, images: torch.Tensor, meta: dict):
+        """(pre_img, pre_hm, pre_hm_hp) for the host-warp path: the previous
+        frame and the heatmaps rendered from the tracker's state
+        (base_detector.py:150-388), on the device. On a video's first frame
+        the frame is its own previous frame, and `meta["pre_dets"]` (ground
+        truth of the first frame, for evaluation) seeds the tracker."""
+        cfg = self.cfg
+        if self.pre_images is None:
+            self.pre_images = images
+            if "pre_dets" in meta:
+                self.tracker.init_track(meta)
+        tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
+        pre_hm, pre_hm_hp = render_previous_heatmaps(tracks, meta, cfg, self.device)
+        return self.pre_images, pre_hm, pre_hm_hp
+
+    def reset_tracking(self) -> None:
+        """Forget the video: the next `run` is a first frame."""
+        self.pre_images = None
+        if self.tracker is not None:
+            self.tracker.reset()
 
     def _batch_submit(self, images: List[np.ndarray],
                       metas: Optional[List[dict]] = None,
@@ -554,6 +672,8 @@ class Detector:
         `run_batch_stream` overlap chunk N's host work with chunk N+1's device
         work."""
         cfg = self.cfg
+        if cfg.tracking_task:
+            raise ValueError("batched mode is for the image model; track a video with run()")
         metas = metas or [None] * len(images)
         t0 = time.time()
 

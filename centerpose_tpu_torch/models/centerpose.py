@@ -8,13 +8,20 @@ Parity target: `DLASeg` (pose_dla_dcn.py:457-570) with `down_ratio=4`,
     step1 → {hm_hp, hp_offset, hps, hps_uncertainty}
     step2 → {scale, scale_uncertainty}
 
-Without convGRU (`dla_34`) every head reads the final stride-4 feature.
+Without convGRU (`dla_34`) every head reads the final stride-4 feature. That
+includes the tracking model (`preset("centerpose_track")`: dla_34 with
+`tracking_task`), whose `tracking` (2) and `tracking_hp` (16) heads read it
+too, and whose trunk takes the previous frame (`pre_img`), its rendered
+center heatmap (`pre_hm`) and its keypoint heatmaps (`pre_hm_hp`) through
+stems of their own (`models/dla.py`). The 4-step GRU routing that the
+reference keeps for dlav1 + tracking (`_GRU_GROUPS_TRACK` of the JAX package,
+an idea the reference marks as untried) is not ported and raises.
 
-`forward` takes an NHWC image batch [B, H, W, 3] and returns a dict of NHWC
-head maps at stride 4, like the JAX model; inside, tensors are NCHW-shaped in
-channels_last memory. Every head runs its own 3x3 conv (the JAX package fuses
-the heads of one step into one wide conv: same numbers up to float noise).
-The tracking model's extra inputs are not ported yet.
+`forward` takes NHWC batches ([B, H, W, 3] image; previous-frame inputs
+[B, H, W, 3 / 1 / 8]) and returns a dict of NHWC head maps at stride 4, like
+the JAX model; inside, tensors are NCHW-shaped in channels_last memory. Every
+head runs its own 3x3 conv (the JAX package fuses the heads of one step into
+one wide conv: same numbers up to float noise).
 """
 
 from __future__ import annotations
@@ -42,18 +49,19 @@ _GRU_GROUPS_IMAGE = (
 
 
 class CenterPoseNet(nn.Module):
-    """dla_34 / dlav1_34 CenterPose image model."""
+    """dla_34 / dlav1_34 CenterPose model (image model, or the dla_34 tracking
+    model)."""
 
     def __init__(self, config: CenterPoseConfig):
         super().__init__()
-        if config.tracking_task:
+        if config.tracking_task and config.use_conv_gru:
             raise NotImplementedError(
-                "the tracking model (pre_img/pre_hm/pre_hm_hp stems, 4-step "
-                "GRU routing) is not ported yet; see ROADMAP.md"
+                "the dlav1 + tracking 4-step GRU routing is not ported; the "
+                "tracking model is dla_34 (preset 'centerpose_track'), see ROADMAP.md"
             )
         self.config = config
         channels = DLA34_CHANNELS
-        self.base = DLA()
+        self.base = DLA(tracking=config.tracking_task)
         self.dla_up = DLAUp(channels[FIRST_LEVEL:])
         self.ida_up = IDAUp(
             channels[FIRST_LEVEL],
@@ -72,9 +80,10 @@ class CenterPoseNet(nn.Module):
                 bias_init_value=-2.19 if "hm" in name else 0.0,  # focal-loss prior
             ))
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW image → the stride-4 feature the heads (or the GRU) read."""
-        levels = self.base(x)
+    def features(self, x: torch.Tensor, *pre) -> torch.Tensor:
+        """NCHW image (and NCHW previous-frame inputs) → the stride-4 feature
+        the heads (or the GRU) read."""
+        levels = self.base(x, *pre)
         pyramid = self.dla_up(levels[FIRST_LEVEL:])
         return self.ida_up(pyramid[: LAST_LEVEL - FIRST_LEVEL])[-1]
 
@@ -85,11 +94,12 @@ class CenterPoseNet(nn.Module):
         pre_hm: Optional[torch.Tensor] = None,
         pre_hm_hp: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        if pre_img is not None or pre_hm is not None or pre_hm_hp is not None:
-            raise NotImplementedError("tracking inputs are not ported yet")
         dtype = self.base.base_layer[0].weight.dtype
-        x = x.to(dtype).permute(0, 3, 1, 2)          # NHWC → NCHW view (channels_last)
-        feat = self.features(x)
+
+        def nchw(t):                                 # NHWC → NCHW view (channels_last)
+            return None if t is None else t.to(dtype).permute(0, 3, 1, 2)
+
+        feat = self.features(nchw(x), nchw(pre_img), nchw(pre_hm), nchw(pre_hm_hp))
 
         out: Dict[str, torch.Tensor] = {}
         if self.use_gru:

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+# The image stem and the tracking model's three previous-frame stems.
+_STEMS = ("base_layer", "pre_img_layer", "pre_hm_layer", "pre_hm_hp_layer")
 
 
 def _t_conv(w) -> np.ndarray:
@@ -60,9 +62,10 @@ def _key_for(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
         raise KeyError(sub)
 
     if parts[0] == "base":
-        # Stem: base/base_layer/conv/{conv,bn}; Sequential idx 0 = conv, 1 = bn.
-        if parts[1] == "base_layer" and len(parts) == 4 and parts[2] == "conv":
-            return conv_or_bn("base.base_layer", parts[3], "0", "1")
+        # Stems: base/{base,pre_img,pre_hm,pre_hm_hp}_layer/conv/{conv,bn};
+        # Sequential idx 0 = conv, 1 = bn.
+        if parts[1] in _STEMS and len(parts) == 4 and parts[2] == "conv":
+            return conv_or_bn(f"base.{parts[1]}", parts[3], "0", "1")
         # Conv levels: base/level{0,1}/conv{i}/{conv,bn}; Sequential [conv,bn,relu]*n.
         if re.fullmatch(r"level[01]", parts[1]) and len(parts) == 4:
             i = int(re.fullmatch(r"conv(\d+)", parts[2]).group(1))

@@ -7,13 +7,16 @@ four Tree stages with levels=[1,1,1,2,2,1] and channels=[16,32,64,128,256,512]),
 bilinear-init depthwise transposed-conv upsample → DCN node merge).
 
 The stem is the plain 7x7 convolution (the JAX package's space-to-depth stem
-is a TPU layout). Not ported yet: the `pre_img`/`pre_hm`/`pre_hm_hp` stems of
-the tracking model and the `dlav0` neck (`DLAUpV0`).
+is a TPU layout). The tracking model adds the CenterTrack-style early-fusion
+stems (:253-271, 310-322): `pre_img_layer`, `pre_hm_layer` and
+`pre_hm_hp_layer`, the same 7x7 conv + BN + ReLU as `base_layer` on 3, 1 and 8
+input channels, each added to the stem output when its input is given. Not
+ported yet: the `dlav0` neck (`DLAUpV0`).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,14 +42,24 @@ def _conv_level(cin: int, cout: int, convs: int, stride: int = 1) -> nn.Sequenti
     return nn.Sequential(*mods)
 
 
+# Previous-frame stems of the tracking model and their input channels.
+PRE_STEMS = (("pre_img_layer", 3), ("pre_hm_layer", 1), ("pre_hm_hp_layer", 8))
+
+
 class DLA(nn.Module):
-    """DLA-34 trunk returning the 6 per-level feature maps (strides 1..32)."""
+    """DLA-34 trunk returning the 6 per-level feature maps (strides 1..32).
+    `tracking=True` adds the three previous-frame stems."""
 
     def __init__(self, levels: Sequence[int] = DLA34_LEVELS,
-                 channels: Sequence[int] = DLA34_CHANNELS):
+                 channels: Sequence[int] = DLA34_CHANNELS,
+                 tracking: bool = False):
         super().__init__()
         ch = channels
         self.base_layer = conv_bn_relu(3, ch[0], 7, 1)
+        self.tracking = tracking
+        if tracking:
+            for name, cin in PRE_STEMS:
+                setattr(self, name, conv_bn_relu(cin, ch[0], 7, 1))
         self.level0 = _conv_level(ch[0], ch[0], levels[0])
         self.level1 = _conv_level(ch[0], ch[1], levels[1], stride=2)
         self.level2 = Tree(levels[2], ch[1], ch[2], 2, level_root=False)
@@ -54,8 +67,14 @@ class DLA(nn.Module):
         self.level4 = Tree(levels[4], ch[3], ch[4], 2, level_root=True)
         self.level5 = Tree(levels[5], ch[4], ch[5], 2, level_root=True)
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, pre_img: Optional[torch.Tensor] = None,
+                pre_hm: Optional[torch.Tensor] = None,
+                pre_hm_hp: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         x = self.base_layer(x)
+        if self.tracking:
+            for (name, _), inp in zip(PRE_STEMS, (pre_img, pre_hm, pre_hm_hp)):
+                if inp is not None:
+                    x = x + getattr(self, name)(inp)
         outs = []
         for name in ("level0", "level1", "level2", "level3", "level4", "level5"):
             x = getattr(self, name)(x)

@@ -1,8 +1,9 @@
 """Model factory: arch string → `nn.Module`, counterpart of
 `centerpose_tpu/models/factory.py`.
 
-Ported: `dla_34` (DLA-34 + DCN neck, plain heads) and `dlav1_34` (the same
-with convGRU-chained heads). The other architectures of the JAX package
+Ported: `dla_34` (DLA-34 + DCN neck, plain heads; with `tracking_task` the
+CenterPoseTrack model) and `dlav1_34` (the same with convGRU-chained heads,
+image model only). The other architectures of the JAX package
 (`dlav0_34`, `res_*`, `resdcn_*`, `hourglass`) raise `NotImplementedError`;
 ROADMAP.md lists them.
 """

@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 drives `centerpose_tpu_torch`'s serving path and its training path at the full
-width of the flagship model (dlav1_34 at 512x512, random weights from seed 0)
-through the entry points a user calls, builds the CUDA kernels from the sources
-in this checkout, holds each against its plain PyTorch version on the card, and
-shows that both paths really went through them. Every phase prints one JSON line; a phase
+width of the flagship model (dlav1_34 at 512x512, random weights from seed 0),
+and its video-tracking path with the CenterPoseTrack model (dla_34 at 512x512,
+one frame per call), through the entry points a user calls, builds the CUDA
+kernels from the sources in this checkout, holds each against its plain
+PyTorch version on the card, and shows that every path really went through
+them. Every phase prints one JSON line; a phase
 that fails raises and the process exits non-zero. Without a CUDA device it
 exits with code 2 and prints no result. It imports nothing of JAX.
 
@@ -17,10 +19,12 @@ Phases:
            together (seconds; the compiler's register / shared memory report
            is printed).
   kernels  `dcn_v2_forward` against `dcn_v2` on the 7 distinct DCN shapes of
-           one dlav1_34 forward at 512x512, float32 and bfloat16: B=2 cases
-           with uniform +-3 offsets, integer offsets, every sample off the
-           image, and |dy| up to 20; a B=1 case (what `Detector.run` gives
-           it); then agreement and times at the serving batch B=8. Operands
+           one dlav1_34 (or dla_34) forward at 512x512, float32 and bfloat16:
+           uniform +-3 offsets, integer offsets, every sample off the image,
+           and |dy| up to 20 (where the TPU's `_row_kernel` would drop taps),
+           each at B=2 and at B=1 (what `Detector.run` and the tracking path
+           give it; times at B=1 too); then agreement and times at the
+           serving batch B=8. Operands
            are made as the network makes them: offset (and, in one case, the
            mask) a channel slice of one [B, H, W, 27] tensor, the weight in
            the kernel's memory layout.
@@ -49,6 +53,21 @@ Phases:
            read just after, and every shape must have been launched 4 times
            what one forward launched. Then a planted-pose PnP check on the
            card.
+  track    CenterPoseTrack: `Detector(preset("centerpose_track"))`, float32,
+           512x512, weights from `track_weights` (He-normal from seed 0, five
+           heads set so that random weights give a coherent video;
+           vis_thresh and new_thresh 0.2), runs a synthetic 24-frame 480x640
+           video (one seeded image moved by (2, 3) pixels a frame) through
+           `run` frame by frame: warp, previous-frame render, stems, network,
+           decode on the card; soft-NMS, fusion, PnP, association, Kalman
+           filter, scale pool and the batched re-PnP. Required: 16 kernel
+           launches in every frame (the counter set to 0 before each), a
+           non-zero pre_hm, a track id detected in 3 consecutive frames after
+           the 4 warm-up frames, and re-PnP solves. Stage medians from frame
+           4 on, frames/s, the 16 launches of a frame timed in place; the
+           same frames in bfloat16 (16 launches per frame); and the float32
+           network with previous-frame inputs through the kernel against the
+           plain DCN, head by head (max abs diff <= 2e-3).
 
   train    `create_train_state` + `make_train_step` for the float32 network at
            512x512, batch 8 (lowered, and said so, only if the card's memory
@@ -136,6 +155,15 @@ TOL_BF16_REL = 3e-2
 
 KERNEL_SOURCE = "centerpose_tpu_torch/csrc/dcn_v2_fwd.cu"
 KERNEL_REPLACES = "centerpose_tpu/ops/dcn_onehot.py:237"
+
+# The track phase (see `track_weights`): frames, frames before the medians,
+# thresholds lowered from 0.3 for random weights, and the heatmap bias shift.
+TRACK_FRAMES = 24
+TRACK_WARMUP = 4
+TRACK_VIS_THRESH = 0.2
+TRACK_NEW_THRESH = 0.2
+TRACK_HM_SHIFT = 7.0
+ROW_KERNEL_REPLACES = "centerpose_tpu/ops/dcn_onehot.py:97"
 
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
@@ -291,10 +319,15 @@ def check_case(args, dtype):
 def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # (seed, B, kind): four kinds of offsets at B=2, the batch of
-    # `Detector.run`, and the serving batch, which is also the one timed.
-    cases = [(s, 2, k) for s, k in enumerate(("uniform", "integer", "off_image", "dy20"))]
-    cases += [(7, 1, "uniform"), (8, 1, "integer"), (9, SERVE_BATCH, "integer"), (10, SERVE_BATCH, "uniform")]
+    # (seed, B, kind): four kinds of offsets at B=2 and at B=1, the batch of
+    # `Detector.run` and of the tracking path (one frame per call; |dy| > 4
+    # is where the TPU's `_row_kernel` would drop taps, and the kernel must
+    # still equal the exact plain version there), then the serving batch.
+    # The last B=1 case and the last case are the ones timed.
+    kinds = ("uniform", "integer", "off_image", "dy20")
+    cases = [(s, 2, k) for s, k in enumerate(kinds)]
+    cases += [(11 + s, 1, k) for s, k in enumerate(kinds[::-1])]
+    cases += [(9, SERVE_BATCH, "integer"), (10, SERVE_BATCH, "uniform")]
     entries = []
     n_cases = 0
     for hw, c, co in PRODUCTION_SHAPES:
@@ -304,7 +337,7 @@ def phase_kernels():
             "dtype": "bfloat16", "library_ms": None,
         }
         for dtype, tag in ((torch.float32, "_f32"), (torch.bfloat16, "")):
-            worst, worst_rel = 0.0, 0.0
+            worst, worst_rel, worst_b1 = 0.0, 0.0, 0.0
             for seed, b, kind in cases:
                 args = make_case(seed, b, hw, c, co, dtype, kind)
                 err, ref_max = check_case(args, dtype)
@@ -317,18 +350,24 @@ def phase_kernels():
                     f"dcn_v2_forward disagrees with dcn_v2: shape {(b, hw, hw, c, co)} "
                     f"{dtype} {kind}: max abs err {err}, output max {ref_max}",
                 )
-            # `args` is now the last case, at the serving batch: the times.
-            with torch.no_grad():
-                ms = time_ms(lambda: dcn_v2_forward(*args), iters=20)
-                plain_ms = time_ms(lambda: dcn_v2(*args), iters=3, warmup=1)
-            bound, bound_by, flops, nbytes = dcn_bound_ms(SERVE_BATCH, hw, c, co, dtype)
-            entry.update({
-                "max_abs_err" + tag: worst, "max_rel_err" + tag: worst_rel,
-                "ms" + tag: ms, "plain_ms" + tag: plain_ms,
-                "bound_ms" + tag: bound, "bound_by" + tag: bound_by,
-                "tflops" + tag: flops / (ms * 1e-3) / 1e12,
-            })
-            del args
+                if b == 1:
+                    worst_b1 = max(worst_b1, err)
+                    args_b1 = args
+            # `args` is now the last case, at the serving batch, and
+            # `args_b1` the last one at B=1: the times.
+            for prefix, a, b in (("", args, SERVE_BATCH), ("b1_", args_b1, 1)):
+                with torch.no_grad():
+                    ms = time_ms(lambda: dcn_v2_forward(*a), iters=20)
+                    plain_ms = time_ms(lambda: dcn_v2(*a), iters=3, warmup=1)
+                bound, bound_by, flops, nbytes = dcn_bound_ms(b, hw, c, co, dtype)
+                entry.update({
+                    prefix + "ms" + tag: ms, prefix + "plain_ms" + tag: plain_ms,
+                    prefix + "bound_ms" + tag: bound, prefix + "bound_by" + tag: bound_by,
+                    prefix + "tflops" + tag: flops / (ms * 1e-3) / 1e12,
+                })
+            entry.update({"max_abs_err" + tag: worst, "max_rel_err" + tag: worst_rel,
+                          "b1_max_abs_err" + tag: worst_b1})
+            del args, args_b1
         entries.append(entry)
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": n_cases, "tf32": "off for cudnn and matmul",
@@ -607,6 +646,220 @@ def phase_serve(cfg, state_dict):
     return launches, shape_counts
 
 
+# ------------------------------------------------------------------- track
+def track_weights(model, cfg, frame_w: int, seed: int) -> None:
+    """Random weights that give a random tracking network a coherent video.
+    `create_model`'s uniform +-1/sqrt(fan_in) convolutions shrink the
+    activations layer by layer until the heatmap is one constant (every cell
+    sigmoid(-2.19), as the serve phase sees), so every convolution is drawn
+    again He-normal (variance 2/fan_in) from `seed`, and the DCN offset convs
+    as the model phase draws them. Then five heads are set, as
+    `tests/test_torch_port_video.py` does on the CPU: the heatmap bias lowered
+    by TRACK_HM_SHIFT so that only the strongest peaks pass the thresholds;
+    boxes 12 output pixels wide, which is what lets the detections of
+    consecutive frames associate; no keypoint-heatmap peak (PnP reads the
+    displacement keypoints); displacement keypoints near the projection of a
+    unit cube 8 units in front of the default camera and a near-unit scale,
+    so that every PnP is well posed; small tracking offsets."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.Conv2d, layers.DCN)):      # not the upsamplers
+                w = mod.weight
+                w.copy_((torch.randn(w.shape, generator=gen) * (2.0 / w[0].numel()) ** 0.5).to(w))
+    randomize_offset_convs(model, seed)
+    out_px = frame_w / cfg.output_w                      # image pixels per output pixel
+    yaw = np.array([[np.cos(0.5), 0, np.sin(0.5)], [0, 1, 0], [-np.sin(0.5), 0, np.cos(0.5)]])
+    corners = cuboid_vertices(np.ones(3)) @ yaw.T + [0.0, 0.0, 8.0]
+    offsets = corners[:, :2] / corners[:, 2:] * DEFAULT_CAMERA[0, 0] / out_px
+    with torch.no_grad():
+        model.hm[-1].bias.sub_(TRACK_HM_SHIFT)
+        for head, gain, bias in (("wh", 0.1, 12.0), ("hm_hp", 0.1, -6.0), ("hps", 0.05, None),
+                                 ("scale", 0.1, 1.0), ("tracking", 0.1, 0.0), ("tracking_hp", 0.1, 0.0)):
+            out = getattr(model, head)[-1]
+            out.weight.mul_(gain)
+            if bias is not None:
+                out.bias.fill_(bias)
+        model.hps[-1].bias.copy_(torch.from_numpy(offsets.reshape(-1).astype(np.float32)))
+
+
+def synthetic_video(n: int, seed: int):
+    """n frames of 480x640 uint8: one smooth seeded image moved by (2, 3)
+    pixels a frame, so that what was seen in one frame is seen again."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, (60, 80, 3)).astype(np.uint8)
+    base = np.asarray(Image.fromarray(base).resize((640 + 3 * n, 480 + 2 * n), Image.BILINEAR))
+    return [np.ascontiguousarray(base[2 * i:2 * i + 480, 3 * i:3 * i + 640]) for i in range(n)]
+
+
+def run_video(det, frames):
+    """Every frame through `Detector.run`, the launch counter read around
+    each; the maximum of the pre_hm the network was given and the re-PnP
+    solves are recorded by wrapping the detector's `_forward_decode` and the
+    tracker's `_re_pnp_batch`."""
+    pre_hm_max, repnp = [], {"calls": 0, "valid": 0}
+    real_forward, real_repnp = det._forward_decode, det.tracker._re_pnp_batch
+
+    def forward_decode(images, pre_img=None, pre_hm=None, pre_hm_hp=None):
+        pre_hm_max.append((len(per_frame), pre_hm.amax()))   # read after the frame
+        return real_forward(images, pre_img, pre_hm, pre_hm_hp)
+
+    def re_pnp(items):
+        outs = real_repnp(items)
+        repnp["calls"] += 1
+        repnp["valid"] += sum(o is not None for o in outs)
+        return outs
+
+    det._forward_decode, det.tracker._re_pnp_batch = forward_decode, re_pnp
+    per_frame = []
+    try:
+        for frame in frames:
+            dcn_v2_forward.launches = 0
+            t0 = time.perf_counter()
+            out = det.run(frame, {"camera_matrix": DEFAULT_CAMERA})
+            torch.cuda.synchronize()
+            per_frame.append({
+                "wall_ms": (time.perf_counter() - t0) * 1e3, "launches": dcn_v2_forward.launches,
+                "times": out["times"], "tracks": len(out["results"]),
+                # ids detected in this frame (matched or new; not the aging ones)
+                "ids": [d["tracking_id"] for d in out["results"] if d["age"] == 1],
+                "matched": sum(d["active"] > 1 for d in out["results"]),
+                "boxes": len(out["boxes"]),
+            })
+    finally:
+        del det._forward_decode, det.tracker._re_pnp_batch
+    hm_max = {f: float(v) for f, v in pre_hm_max}
+    return per_frame, hm_max, repnp
+
+
+def stage_medians(per_frame):
+    """Median ms of each stage over the frames after the warm-up ones."""
+    steady = per_frame[TRACK_WARMUP:]
+    keys = ("pre", "net", "post", "merge", "pnp", "track", "tot")
+    med = {k: float(np.median([f["times"][k] for f in steady])) * 1e3 for k in keys}
+    med["wall"] = float(np.median([f["wall_ms"] for f in steady]))
+    return med
+
+
+def longest_run(per_frame):
+    """The most consecutive frames (from the warm-up on) in which one track
+    id was detected (spawned or matched; a track that only ages does not
+    count)."""
+    best, runs = 0, {}
+    for f in per_frame[TRACK_WARMUP:]:
+        runs = {i: runs.get(i, 0) + 1 for i in f["ids"]}
+        best = max([best] + list(runs.values()))
+    return best
+
+
+def phase_track(per_forward):
+    """CenterPoseTrack: the dla_34 tracking model at 512x512, float32 (the
+    demo's default), a synthetic video through `Detector.run` frame by frame,
+    then the same frames in bfloat16, then the network through the kernel
+    against the network through the plain DCN with previous-frame inputs."""
+    torch.cuda.empty_cache()
+    cfg = preset("centerpose_track", category="shoe", input_h=INPUT, input_w=INPUT,
+                 vis_thresh=TRACK_VIS_THRESH, new_thresh=TRACK_NEW_THRESH)
+    det = Detector(cfg, device=DEVICE, seed=0)
+    frames = synthetic_video(TRACK_FRAMES, seed=4)
+    track_weights(det.model, cfg, frames[0].shape[1], seed=0)
+    state = {k: v.clone() for k, v in det.model.state_dict().items()}
+
+    shape_counts: Counter = Counter()
+    hooks = count_dcn_shapes(det.model, shape_counts)
+    dcn_v2_forward.launches = 0                          # ---- the main path starts
+    per_frame, hm_max, repnp = run_video(det, frames)    # ---- and ends (counted per frame)
+    for h in hooks:
+        h.remove()
+    launches = [f["launches"] for f in per_frame]
+    require(all(n == 16 for n in launches), f"DCN forward launches per frame {launches}, expected 16 each")
+    require(sum(shape_counts.values()) == sum(launches), "DCN calls counted by shape differ from the launch counter")
+    require(set(shape_counts) == set(per_forward),
+            f"the tracking network's DCN shapes {sorted(shape_counts)} are not the image model's")
+    require(max(hm_max.values(), default=0.0) > 0.0, f"pre_hm is zero on every frame: {hm_max}")
+    carried = [0] + [len(set(a["ids"]) & set(b["ids"])) for a, b in zip(per_frame, per_frame[1:])]
+    run = longest_run(per_frame)
+    require(run >= 3, f"no track id persists over 3 consecutive frames after warm-up ({run})")
+    require(repnp["calls"] > 0 and repnp["valid"] > 0, f"the tracker's re-PnP never ran: {repnp}")
+    med = stage_medians(per_frame)
+
+    # The 16 launches of one frame in place: CUDA events around each.
+    spans = []
+    real = layers.dcn_v2_forward
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = real(*args)
+        b.record()
+        spans.append((a, b))
+        return res
+
+    layers.dcn_v2_forward = timed
+    try:
+        det.run(frames[-1], {"camera_matrix": DEFAULT_CAMERA})
+        torch.cuda.synchronize()
+    finally:
+        layers.dcn_v2_forward = real
+    require(len(spans) == 16, f"{len(spans)} timed DCN calls in one frame, expected 16")
+    dcn_ms = sum(a.elapsed_time(b) for a, b in spans)
+
+    # The same frames in bfloat16.
+    det16 = Detector(cfg.replace(compute_dtype="bfloat16"), state_dict=state, device=DEVICE)
+    per_frame16, hm_max16, _ = run_video(det16, frames)
+    launches16 = [f["launches"] for f in per_frame16]
+    require(all(n == 16 for n in launches16), f"bf16: DCN forward launches per frame {launches16}")
+    med16 = stage_medians(per_frame16)
+    del det16
+
+    # One frame of the network with previous-frame inputs, float32: through
+    # the kernel and through the plain DCN, head by head (TF32 is off).
+    rng = np.random.RandomState(6)
+    inputs = [torch.from_numpy(rng.rand(1, INPUT, INPUT, n).astype(np.float32)).to(DEVICE)
+              for n in (3, 3, 1, 8)]
+    with torch.no_grad():
+        out_k = det.model(*inputs)
+        layers.dcn_v2_forward = dcn_v2
+        try:
+            out_p = det.model(*inputs)
+        finally:
+            layers.dcn_v2_forward = real
+    torch.cuda.synchronize()
+    require(set(out_k) == set(cfg.heads) and len(out_k) == 11, f"heads {sorted(out_k)}")
+    diffs = {h: (out_k[h] - out_p[h]).abs().max().item() for h in out_k}
+    require(all(torch.isfinite(v).all() for v in out_k.values()), "a tracking head is not finite")
+    require(max(diffs.values()) <= 2e-3, f"f32 tracking network, kernel vs plain DCN: {diffs}")
+
+    emit({
+        "phase": "track", "arch": cfg.arch, "input": [1, INPUT, INPUT, 3], "frame": list(frames[0].shape),
+        "frames": len(frames), "vis_thresh": cfg.vis_thresh, "new_thresh": cfg.new_thresh,
+        "weights": "He-normal from seed 0, heads set by track_weights",
+        "hm_bias_shift": TRACK_HM_SHIFT,
+        "stage_ms_median_float32": med, "frames_per_s_float32": 1e3 / med["wall"],
+        "stage_ms_median_bfloat16": med16, "frames_per_s_bfloat16": 1e3 / med16["wall"],
+        "median_over_frames_from": TRACK_WARMUP,
+        "launches_per_frame": launches, "launches_per_frame_bfloat16": launches16,
+        "launches_by_shape": {"x".join(map(str, k)): v for k, v in shape_counts.items()},
+        "live_tracks_per_frame": [f["tracks"] for f in per_frame],
+        "detected_tracks_per_frame": [len(f["ids"]) for f in per_frame],
+        "matched_per_frame": [f["matched"] for f in per_frame],
+        "ids_carried_from_previous_frame": carried,
+        "longest_id_run_after_warmup": run,
+        "boxes_per_frame": [f["boxes"] for f in per_frame],
+        "pre_hm_max_by_frame": hm_max, "pre_hm_max_by_frame_bfloat16": hm_max16,
+        "re_pnp": repnp,
+        "dcn_kernel_ms_per_frame_in_place": dcn_ms,
+        "dcn_share_of_net_float32": dcn_ms / med["net"],
+        "f32_kernel_vs_plain_max_abs_diff": diffs,
+    })
+    del det, out_k, out_p
+    torch.cuda.empty_cache()
+    return shape_counts, sum(launches), med
+
+
 # ------------------------------------------------------------------- train
 def synthetic_batch(cfg, batch_size: int, seed: int):
     """One object per image at the centre of the map with random keypoints,
@@ -867,6 +1120,37 @@ def backward_entries(bwd_per_shape, per_forward, counts):
     return entries
 
 
+def row_kernel_entry(entries, per_forward, launches_track):
+    """The entry of the TPU kernel `_row_kernel` (B2): its counterpart is the
+    same CUDA kernel, on the tracking path, one frame per call. Times and
+    bound are float32 at B=1 (the demo's default type), summed over the 16
+    DCN calls of one frame; per-shape rows in both types."""
+    rows, by = [], Counter()
+    for e in entries:
+        _, hw, _, c, co = e["shape"]
+        n = per_forward[(hw, c, co)]
+        rows.append({"shape": [1, hw, hw, c, co], "calls_per_frame": n,
+                     **{k: e[k] for k in e if k.startswith("b1_")}})
+        by[e["b1_bound_by_f32"]] += n * e["b1_bound_ms_f32"]
+
+    def total(key):
+        return sum(r["calls_per_frame"] * r[key] for r in rows)
+
+    return {
+        "name": "dcn_v2_fwd", "tpu_kernel": "_row_kernel", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": ROW_KERNEL_REPLACES, "dtype": "float32", "launches": launches_track,
+        "max_abs_err": max(r["b1_max_abs_err_f32"] for r in rows),
+        "ms": total("b1_ms_f32"), "plain_ms": total("b1_plain_ms_f32"),
+        "bound_ms": total("b1_bound_ms_f32"), "bound_by": by.most_common(1)[0][0],
+        "library_ms": None,
+        "bfloat16": {"ms": total("b1_ms"), "plain_ms": total("b1_plain_ms"),
+                     "bound_ms": total("b1_bound_ms")},
+        "times_are": "sums over the 16 DCN calls of one frame at batch 1 (per-call CUDA events)",
+        "launches_are": "the track phase's float32 pass over the video",
+        "per_shape": rows,
+    }
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_env()
@@ -875,6 +1159,7 @@ def main() -> int:
     bwd_per_shape = phase_kernels_bwd()
     cfg, state, per_forward = phase_model()
     launches, shape_counts = phase_serve(cfg, state)
+    track_counts, track_launches, _ = phase_track(per_forward)
     train_fwd_launches, train_counts = phase_train(per_forward, entries, bwd_per_shape)
 
     # All counts are this run's: one forward of the model phase, the serve
@@ -887,12 +1172,17 @@ def main() -> int:
         require(e["launches"] == 4 * e["launches_per_forward"],
                 f"{e['shape']}: {e['launches']} launches in 4 served forwards, "
                 f"{e['launches_per_forward']} in the model phase's one")
+        e["launches_track"] = track_counts.get((hw, c, co), 0)
+        require(e["launches_track"] > 0, f"the tracking path never launched the kernel at {e['shape']}")
         e["launches_train"] = train_fwd_launches.get((hw, c, co), 0)
         require(e["launches_train"] > 0, f"the training path never launched the forward kernel at {e['shape']}")
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
     require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
             "training launches by shape do not add up to the counter")
-    summary = {"kernels": entries + backward_entries(bwd_per_shape, per_forward, train_counts)}
+    require(sum(e["launches_track"] for e in entries) == track_launches,
+            "tracking launches by shape do not add up to the counter")
+    summary = {"kernels": entries + [row_kernel_entry(entries, per_forward, track_launches)]
+               + backward_entries(bwd_per_shape, per_forward, train_counts)}
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     if OUT_DIR:
         os.makedirs(OUT_DIR, exist_ok=True)

@@ -268,8 +268,8 @@ def test_unported_paths_raise():
     for arch in ("dlav0_34", "res_18", "resdcn_18", "hourglass"):
         with pytest.raises(NotImplementedError):
             create_model(preset("centerpose", arch=arch), device="cpu")
-    with pytest.raises(NotImplementedError):
-        create_model(preset("centerpose_track"), device="cpu")
+    with pytest.raises(NotImplementedError):      # dlav1 + tracking GRU routing
+        create_model(preset("centerpose", tracking_task=True), device="cpu")
     with pytest.raises(ValueError):
         create_model(preset("centerpose", arch="nope_1"), device="cpu")
 

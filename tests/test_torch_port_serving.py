@@ -210,7 +210,7 @@ def test_detector_run_matches_jax(detectors):
     ref, port, images = detectors
     out, exp = port.run(images[0]), ref.run(images[0])
     _assert_results_match(out, exp)
-    assert set(out["times"]) == set(exp["times"]) - {"track"}
+    assert set(out["times"]) == set(exp["times"])          # the stage `track` included
     # PnP ran on the survivors and its poses are finite.
     assert any("location" in d for d in out["results"])
     for d in out["results"]:
@@ -243,10 +243,12 @@ def test_detector_run_batch_matches_jax(detectors):
 
 
 def test_detector_refuses_what_is_not_ported():
+    # The tracking model is dla_34; the dlav1 + tracking 4-step GRU routing
+    # (an idea the reference never tried) is not ported.
     with pytest.raises(NotImplementedError):
-        Detector(preset("centerpose_track"), device="cpu")
+        Detector(preset("centerpose", tracking_task=True, input_h=64, input_w=64), device="cpu")
     with pytest.raises(NotImplementedError):
-        Detector(preset("centerpose", refined_kalman=True), device="cpu")
+        Detector(preset("centerpose", arch="res_18", input_h=64, input_w=64), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(Exception):     # asked for "cuda" without one: no CPU fallback
             Detector(preset("centerpose_dla", input_h=64, input_w=64))
@@ -269,6 +271,10 @@ def test_port_imports_no_jax():
     module level (the tests here import every module)."""
     files = sorted((REPO / "centerpose_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    for module in ("tracking/kalman.py", "tracking/render.py", "tracking/tracker.py",
+                   "tracking/tracker_baseline.py", "data/video.py", "demo.py"):
+        assert f"centerpose_tpu_torch/{module}" in names, module
     banned = {"jax", "jaxlib", "flax", "centerpose_tpu", "optax", "orbax"}
     for path in files:
         for name in _imports(path):
