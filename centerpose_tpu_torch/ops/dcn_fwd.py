@@ -35,6 +35,41 @@ from centerpose_tpu_torch.ops.dcn import dcn_v2
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The bf16 kernel's tiling (`csrc/dcn_v2_fwd.cu`, `dcn_v2_fwd_bf16_plan`):
+# 64 output pixels per block, a ring of 3 (column, weight) stages of 64 input
+# channels, 128-byte rows.
+BF16_BLOCK_M = 64
+BF16_STAGES = 3
+_TAPS = 9
+
+
+def bf16_plan(b: int, h: int, w: int, c: int, co: int) -> dict:
+    """Tile, grid and dynamic shared memory of the bf16 kernel for one call,
+    as `dcn_v2_fwd_launch` chooses them: a block owns 64 pixels and 64
+    output channels where Co <= 64, else 128."""
+    bn = 64 if co <= 64 else 128
+    m = b * h * w
+    stage = (BF16_BLOCK_M + bn) * 128                       # column + weight tile
+    tables = _TAPS * BF16_BLOCK_M * 32                       # corner indices + weights
+    return {
+        "block_m": BF16_BLOCK_M, "block_n": bn,
+        "grid": [-(-m // BF16_BLOCK_M), -(-co // bn)],
+        "smem_bytes": 1024 + BF16_STAGES * stage + tables, "stages": BF16_STAGES,
+    }
+
+
+def kernel_bf16_plan(b: int, h: int, w: int, c: int, co: int) -> dict:
+    """The plan the built kernel reports for one call (the keys of
+    `bf16_plan`); raises for a shape it does not take."""
+    fn = _library().dcn_v2_fwd_bf16_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * 6)()
+    if fn(b, h, w, c, co, plan) != 0:
+        raise ValueError(f"dcn_v2_forward: the bf16 kernel does not take {(b, h, w, c, co)}")
+    return {"block_m": plan[0], "block_n": plan[1], "grid": [plan[2], plan[3]],
+            "smem_bytes": plan[4], "stages": plan[5]}
+
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("dcn_v2_fwd")

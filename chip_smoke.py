@@ -24,7 +24,16 @@ Phases:
            and |dy| up to 20 (where the TPU's `_row_kernel` would drop taps),
            each at B=2 and at B=1 (what `Detector.run` and the tracking path
            give it; times at B=1 too); then agreement and times at the
-           serving batch B=8. Operands
+           serving batch B=8; then bf16 tails (C, Co) in TAIL_SHAPES on a
+           9x11 map at B=1 and 2, uniform and off-image offsets. The bf16
+           kernel's tile, grid and dynamic shared memory per shape are
+           printed, and must be what `ops/dcn_fwd.py::bf16_plan` states.
+           Per-call times are the device's: the calls are queued behind a
+           device sleep, so a call shorter than its launch from Python is not
+           timed by the host's pace. With `--compare LABEL=PATH`, each other
+           build of the forward source is also held against the plain
+           version and timed in turns with this one (other, this, this,
+           other) at every bf16 shape at B=8 and B=1. Operands
            are made as the network makes them: offset (and, in one case, the
            mask) a channel slice of one [B, H, W, 27] tensor, the weight in
            the kernel's memory layout.
@@ -91,7 +100,12 @@ Phases:
            two routes, which share every other kernel, to about 1e-4).
 
 `--out DIR` also writes every phase's line and the kernel table to
-`DIR/chip_smoke_kernels.json`.
+`DIR/chip_smoke_kernels.json`. `--compare LABEL=PATH` (repeatable) adds an
+earlier version of `csrc/dcn_v2_fwd.cu` to the kernels phase's bf16 timings,
+e.g. the parent commit's, unpacked into a git-ignored directory:
+
+    git archive HEAD~1 centerpose_tpu_torch/csrc | tar -x -C _parent
+    python3 chip_smoke.py --out DIR --compare parent=_parent/centerpose_tpu_torch/csrc/dcn_v2_fwd.cu
 """
 
 from __future__ import annotations
@@ -119,7 +133,12 @@ from centerpose_tpu_torch.models import layers  # noqa: E402
 from centerpose_tpu_torch.models.factory import create_model  # noqa: E402
 from centerpose_tpu_torch.ops import dcn_bwd  # noqa: E402
 from centerpose_tpu_torch.ops.dcn import dcn_v2  # noqa: E402
-from centerpose_tpu_torch.ops.dcn_fwd import dcn_v2_forward, kernel_weight  # noqa: E402
+from centerpose_tpu_torch.ops.dcn_fwd import (  # noqa: E402
+    bf16_plan,
+    dcn_v2_forward,
+    kernel_bf16_plan,
+    kernel_weight,
+)
 from centerpose_tpu_torch.ops.decode import object_pose_decode  # noqa: E402
 from centerpose_tpu_torch.ops.pnp import solve_pnp_batch_padded  # noqa: E402
 from centerpose_tpu_torch.training.losses import centerpose_loss  # noqa: E402
@@ -133,6 +152,10 @@ DEVICE = torch.device("cuda")
 # `--out DIR`: also write the phases' lines and the kernel table to
 # DIR/chip_smoke_kernels.json.
 OUT_DIR = sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv[1:-1] else None
+# `--compare LABEL=PATH` (repeatable): another build of the forward kernel's
+# source (an earlier version of csrc/dcn_v2_fwd.cu, same C interface), timed in
+# turns with this checkout's at every bf16 shape of the kernels phase.
+COMPARE = [sys.argv[i + 1].split("=", 1) for i, a in enumerate(sys.argv[:-1]) if a == "--compare"]
 PHASES = []
 
 # The distinct (H = W, C, Co) of the 16 DCN blocks of one dlav1_34 forward at
@@ -145,11 +168,18 @@ PRODUCTION_SHAPES = (
 )
 INPUT = 512
 SERVE_BATCH = 8
+# (C, Co) of the bf16 tail cases on a 9x11 map: a channel chunk, an output
+# tile and a pixel tile that the kernel's tiles do not divide.
+TAIL_SHAPES = ((8, 8), (24, 40), (72, 200), (64, 136))
+TAIL_HW = (9, 11)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the yardstick of
 # `bound_ms`, whatever power limit the card in hand is set to.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# Device sleep before a queued timing: ~3 ms at the H100's 1.98 GHz boost,
+# more than the host takes to enqueue 20 kernel calls from Python.
+QUEUE_CYCLES = 6_000_000
 TOL_F32 = 1e-4
 TOL_BF16_REL = 3e-2
 
@@ -193,12 +223,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
     """Mean time of fn() in ms: CUDA events around `iters` back-to-back calls
-    after a warm-up."""
+    after a warm-up. `queued`: the device first sleeps for ~QUEUE_MS, so the
+    host has enqueued the calls before the first starts, and the time is the
+    device's alone even for a call shorter than its launch from Python."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -257,7 +291,8 @@ def phase_build() -> None:
 
 # ----------------------------------------------------------------- kernels
 def make_case(seed, b, hw, c, co, dtype, kind):
-    """Operands of one DCN call on the card, made with numpy from `seed` and
+    """Operands of one DCN call on the card on an hw x hw map (or h x w for
+    `hw = (h, w)`), made with numpy from `seed` and
     laid out as `models/layers.py::DCN.operands` lays them out: `offset` is
     the [..., :18] slice of a [B, H, W, 27] tensor (pixel stride 27), `mask`
     the sigmoid of its [..., 18:] slice (a tensor of its own, pixel stride
@@ -265,25 +300,26 @@ def make_case(seed, b, hw, c, co, dtype, kind):
     `kernel_weight`. The "integer" case instead holds gates in the last 9
     channels and hands the kernel that slice itself, so the mask's pixel
     stride is 27 there."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
     rng = np.random.RandomState(seed)
-    x = rng.randn(b, hw, hw, c)
-    om = np.empty((b, hw, hw, 27))
+    x = rng.randn(b, h, w, c)
+    om = np.empty((b, h, w, 27))
     if kind == "uniform":
-        om[..., :18] = (rng.rand(b, hw, hw, 18) * 2 - 1) * 3.0
+        om[..., :18] = (rng.rand(b, h, w, 18) * 2 - 1) * 3.0
     elif kind == "integer":
-        om[..., :18] = rng.randint(-3, 4, (b, hw, hw, 18))
+        om[..., :18] = rng.randint(-3, 4, (b, h, w, 18))
     elif kind == "off_image":
-        om[..., 0:18:2] = -(hw + 5.25)
-        om[..., 1:18:2] = hw + 7.5
+        om[..., 0:18:2] = -(h + 5.25)
+        om[..., 1:18:2] = w + 7.5
     elif kind == "dy20":
-        om[..., :18] = (rng.rand(b, hw, hw, 18) * 2 - 1) * 2.0
-        om[..., 0:18:2] = (rng.rand(b, hw, hw, 9) * 2 - 1) * 20.0
+        om[..., :18] = (rng.rand(b, h, w, 18) * 2 - 1) * 2.0
+        om[..., 0:18:2] = (rng.rand(b, h, w, 9) * 2 - 1) * 20.0
     else:
         raise ValueError(kind)
     if kind == "integer":
-        om[..., 18:] = rng.rand(b, hw, hw, 9)
+        om[..., 18:] = rng.rand(b, h, w, 9)
     else:
-        om[..., 18:] = rng.randn(b, hw, hw, 9) * 2.0
+        om[..., 18:] = rng.randn(b, h, w, 9) * 2.0
     weight = rng.randn(co, c, 3, 3) / np.sqrt(9 * c)
     bias = rng.randn(co) * 0.1
     x, om, weight, bias = (
@@ -316,6 +352,69 @@ def check_case(args, dtype):
     return err, ref.float().abs().max().item()
 
 
+def plan_of(b, h, w, c, co):
+    """The bf16 kernel's tile, grid and shared memory for one call, as the
+    built kernel reports it; it must be the plan `ops/dcn_fwd.py` states."""
+    plan = kernel_bf16_plan(b, h, w, c, co)
+    require(plan == bf16_plan(b, h, w, c, co),
+            f"kernel plan {plan} != bf16_plan {bf16_plan(b, h, w, c, co)} at {(b, h, w, c, co)}")
+    return plan
+
+
+def compared_launchers():
+    """{label: launch(args) -> out} for each `--compare LABEL=PATH`: the
+    source built as `_build` builds csrc/*.cu, loaded beside this checkout's
+    kernel, called through the same C interface (no launch is counted)."""
+    import ctypes
+
+    launchers = {}
+    for label, path in COMPARE:
+        lib_path = _build.BUILD / f"libcompare-{label}.so"
+        _build.BUILD.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), path],
+                       check=True, capture_output=True, text=True, timeout=600)
+        fn = ctypes.CDLL(str(lib_path)).dcn_v2_fwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+        def launch(args, fn=fn):
+            x, offset, mask, weight, bias = args
+            b, h, w, c = x.shape
+            co = weight.shape[3]
+            w_mat = weight.permute(3, 0, 1, 2).contiguous()
+            out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+            err = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w_mat.data_ptr(),
+                     bias.data_ptr(), out.data_ptr(), b, h, w, c, co, offset.stride(2),
+                     mask.stride(2), 1, torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"compared kernel launch failed: {err}")
+            return out
+
+        launchers[label] = launch
+    return launchers
+
+
+def compare_bodies(launchers, args, b, bound):
+    """This checkout's bf16 kernel and each compared one at one case: the
+    compared body's error against the plain version, and times in turns
+    (other, this, this, other), 20 launches each."""
+    ref = dcn_v2(*args).float()
+    scale = max(ref.abs().max().item(), 1e-12)
+    rows = {}
+    with torch.no_grad():
+        for label, launch in launchers.items():
+            rel = (launch(args).float() - ref).abs().max().item() / scale
+            require(rel <= TOL_BF16_REL, f"compared body {label} disagrees with dcn_v2: {rel}")
+            t = [time_ms(lambda: launch(args), iters=20, queued=True),
+                 time_ms(lambda: dcn_v2_forward(*args), iters=20, queued=True),
+                 time_ms(lambda: dcn_v2_forward(*args), iters=20, queued=True),
+                 time_ms(lambda: launch(args), iters=20, queued=True)]
+            rows[label] = {"batch": b, "other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+                           "ratio": (t[1] + t[2]) / (t[0] + t[3]), "bound_ms": bound,
+                           "other_max_rel_err": rel}
+    return rows
+
+
 def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -330,11 +429,13 @@ def phase_kernels():
     cases += [(9, SERVE_BATCH, "integer"), (10, SERVE_BATCH, "uniform")]
     entries = []
     n_cases = 0
+    launchers = compared_launchers()
     for hw, c, co in PRODUCTION_SHAPES:
         entry = {
             "name": "dcn_v2_fwd", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES, "shape": [SERVE_BATCH, hw, hw, c, co],
             "dtype": "bfloat16", "library_ms": None,
+            "plan": plan_of(SERVE_BATCH, hw, hw, c, co), "b1_plan": plan_of(1, hw, hw, c, co),
         }
         for dtype, tag in ((torch.float32, "_f32"), (torch.bfloat16, "")):
             worst, worst_rel, worst_b1 = 0.0, 0.0, 0.0
@@ -357,7 +458,7 @@ def phase_kernels():
             # `args_b1` the last one at B=1: the times.
             for prefix, a, b in (("", args, SERVE_BATCH), ("b1_", args_b1, 1)):
                 with torch.no_grad():
-                    ms = time_ms(lambda: dcn_v2_forward(*a), iters=20)
+                    ms = time_ms(lambda: dcn_v2_forward(*a), iters=20, queued=True)
                     plain_ms = time_ms(lambda: dcn_v2(*a), iters=3, warmup=1)
                 bound, bound_by, flops, nbytes = dcn_bound_ms(b, hw, c, co, dtype)
                 entry.update({
@@ -367,14 +468,40 @@ def phase_kernels():
                 })
             entry.update({"max_abs_err" + tag: worst, "max_rel_err" + tag: worst_rel,
                           "b1_max_abs_err" + tag: worst_b1})
+            if dtype == torch.bfloat16 and launchers:
+                entry["compared"] = {
+                    "b8": compare_bodies(launchers, args, SERVE_BATCH, entry["bound_ms"]),
+                    "b1": compare_bodies(launchers, args_b1, 1, entry["b1_bound_ms"]),
+                }
             del args, args_b1
         entries.append(entry)
+
+    # bf16 tails: C not a multiple of the 64-channel chunk, Co not a multiple
+    # of the output tile, a last pixel tile that is partly outside the map.
+    tails = []
+    for c, co in TAIL_SHAPES:
+        worst_rel = 0.0
+        for seed, b, kind in ((40, 1, "uniform"), (41, 2, "uniform"), (42, 1, "off_image"), (43, 2, "off_image")):
+            args = make_case(seed, b, TAIL_HW, c, co, torch.bfloat16, kind)
+            err, ref_max = check_case(args, torch.bfloat16)
+            n_cases += 1
+            rel = err / max(ref_max, 1e-12)
+            require(rel <= TOL_BF16_REL,
+                    f"dcn_v2_forward disagrees with dcn_v2: tail {(b, *TAIL_HW, c, co)} {kind}: "
+                    f"max abs err {err}, output max {ref_max}")
+            worst_rel = max(worst_rel, rel)
+        tails.append({"shape": [2, *TAIL_HW, c, co], "plan": plan_of(2, *TAIL_HW, c, co),
+                      "max_rel_err": worst_rel})
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": n_cases, "tf32": "off for cudnn and matmul",
           "batches": sorted({b for _, b, _ in cases}),
           "tolerance": {"float32_abs": TOL_F32, "bfloat16_rel_to_output_max": TOL_BF16_REL},
           "worst_f32_abs": max(e["max_abs_err_f32"] for e in entries),
-          "worst_bf16_rel": max(e["max_rel_err"] for e in entries)})
+          "worst_bf16_rel": max(e["max_rel_err"] for e in entries),
+          "bf16_plans": {"x".join(map(str, e["shape"])): {"b8": e["plan"], "b1": e["b1_plan"]}
+                         for e in entries},
+          "bf16_tails": tails,
+          "compared": {"x".join(map(str, e["shape"])): e["compared"] for e in entries if "compared" in e}})
     return entries
 
 
