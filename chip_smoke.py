@@ -42,14 +42,25 @@ Phases:
            magnitude (bf16 inputs and one rounding of columns and output).
            float32 comparisons run with TF32 switched off for cuDNN and
            matmul.
-           Then the four backward kernels, float32, on the same 7 shapes:
+  kernels_bwd
+           The four backward kernels, float32, on the same 7 shapes:
            `dcn_v2_grads(fused=True)` (one launch) and `(fused=False)` (the
            dX, coordinate and dW kernels) against `dcn_v2_grads_plain`, each
            of the five terms by name, for the four offset kinds at B=2 and
-           at the training batch B=8; tolerance per term 1e-4 of the term's
-           largest magnitude plus 1e-5 (sums of up to B*H*W or 9*C*Co
-           float32 terms, for dX and dW in the order the atomics land);
-           then times per shape at B=8.
+           at the training batch B=8, then on the tails BWD_TAIL_SHAPES (a
+           9x11 map at B=1 and 2; the last has Co > 256, which the wrapper
+           cuts into two launches); tolerance per term 1e-4 of the term's
+           largest magnitude plus 1e-5 (sums of up to B*H*W or 9*C*Co terms
+           of 3xTF32 products, dX in the order the atomics land). Each
+           kernel's tiling, grid, shared memory and scratch per shape is
+           printed and must be what `ops/dcn_bwd.py::bwd_plan` states; each
+           kernel is called twice on the same operands and dW, d_offset and
+           d_mask must be the same bits (dX, a sum of atomics, is only
+           reported). Times per shape at B=8 are device times (calls queued
+           behind a device sleep). With `--compare LABEL=PATH` naming a
+           `dcn_v2_bwd.cu`, that build's four kernels are held against the
+           plain version and timed in turns with this checkout's (other,
+           this, this, other) at every shape.
   model    the bf16 network + decode on a [8, 512, 512, 3] batch as the JAX
            package's bench.py runs it: the kernel launches of one forward
            counted by shape (16 in all), output
@@ -99,13 +110,23 @@ Phases:
            gradient to about a percent between two libraries, and between these
            two routes, which share every other kernel, to about 1e-4).
 
+Bounds: float32 operations are counted at the rate of float32-accurate
+products on the tensor cores (3xTF32: a third of 495 TFLOP/s), bf16 at 989
+TFLOP/s, bytes at 3.35 TB/s; a kernel timed under its bound fails the run.
+
 `--out DIR` also writes every phase's line and the kernel table to
 `DIR/chip_smoke_kernels.json`. `--compare LABEL=PATH` (repeatable) adds an
 earlier version of `csrc/dcn_v2_fwd.cu` to the kernels phase's bf16 timings,
-e.g. the parent commit's, unpacked into a git-ignored directory:
+or of `csrc/dcn_v2_bwd.cu` to the kernels_bwd phase, e.g. the parent
+commit's, unpacked into a git-ignored directory:
 
     git archive HEAD~1 centerpose_tpu_torch/csrc | tar -x -C _parent
-    python3 chip_smoke.py --out DIR --compare parent=_parent/centerpose_tpu_torch/csrc/dcn_v2_fwd.cu
+    python3 chip_smoke.py --out DIR --compare parent=_parent/centerpose_tpu_torch/csrc/dcn_v2_bwd.cu
+
+`--clock` adds to the kernels_bwd phase, per production shape, the cycles a
+block of the fused backward kernel spends per 64-pixel tile in each of its
+phases (clock64() at its barriers, thread 0 of every block), for this
+checkout's source and each compared one that has a plan.
 """
 
 from __future__ import annotations
@@ -152,10 +173,22 @@ DEVICE = torch.device("cuda")
 # `--out DIR`: also write the phases' lines and the kernel table to
 # DIR/chip_smoke_kernels.json.
 OUT_DIR = sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv[1:-1] else None
-# `--compare LABEL=PATH` (repeatable): another build of the forward kernel's
-# source (an earlier version of csrc/dcn_v2_fwd.cu, same C interface), timed in
-# turns with this checkout's at every bf16 shape of the kernels phase.
+# `--compare LABEL=PATH` (repeatable): another build of a kernel's source, an
+# earlier version of csrc/dcn_v2_fwd.cu (timed in turns with this checkout's at
+# every bf16 shape of the kernels phase) or of csrc/dcn_v2_bwd.cu (every
+# backward kernel at every production shape of the kernels_bwd phase).
 COMPARE = [sys.argv[i + 1].split("=", 1) for i, a in enumerate(sys.argv[:-1]) if a == "--compare"]
+def _is_backward_source(path: str) -> bool:
+    with open(path) as fh:
+        return "dcn_v2_bwd_fused_launch" in fh.read()
+
+
+COMPARE_FWD = [(k, p) for k, p in COMPARE if not _is_backward_source(p)]
+COMPARE_BWD = [(k, p) for k, p in COMPARE if _is_backward_source(p)]
+# `--clock`: the kernels_bwd phase also builds a copy of each backward source
+# with clock64() read at its block barriers and reports, per shape, the
+# cycles a block spends per 64-pixel tile in each phase of the fused kernel.
+CLOCK = "--clock" in sys.argv[1:]
 PHASES = []
 
 # The distinct (H = W, C, Co) of the 16 DCN blocks of one dlav1_34 forward at
@@ -172,10 +205,17 @@ SERVE_BATCH = 8
 # tile and a pixel tile that the kernel's tiles do not divide.
 TAIL_SHAPES = ((8, 8), (24, 40), (72, 200), (64, 136))
 TAIL_HW = (9, 11)
+# The backward's tails: the same, and a Co wider than one launch takes.
+BWD_TAIL_SHAPES = TAIL_SHAPES + ((16, 264),)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the yardstick of
-# `bound_ms`, whatever power limit the card in hand is set to.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# `bound_ms`, whatever power limit the card in hand is set to. A float32-
+# accurate product is three TF32 products on the tensor cores (3xTF32: a_hi.b_hi
+# + a_hi.b_lo + a_lo.b_hi), so float32 operations are counted at a third of the
+# TF32 rate, whatever implements them (the FMA units' 67 TFLOP/s are slower).
+PEAK_TF32 = 495e12
+TF32_PRODUCTS_PER_F32 = 3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: PEAK_TF32 / TF32_PRODUCTS_PER_F32}
 PEAK_BYTES = 3.35e12
 # Device sleep before a queued timing: ~3 ms at the H100's 1.98 GHz boost,
 # more than the host takes to enqueue 20 kernel calls from Python.
@@ -274,7 +314,12 @@ def reset_launches() -> None:
 # ------------------------------------------------------------------- build
 def phase_build() -> None:
     t0 = time.time()
+    compared = start_compared_builds()
     logs = _build.build_all()
+    for label, job in compared:
+        log, _ = job.communicate(timeout=900)
+        require(job.returncode == 0, f"nvcc failed for --compare {label}:\n{log}")
+        logs[f"compare:{label}"] = log
     args = make_case(0, 1, 8, 8, 8, torch.float32, "uniform")
     dout = dcn_v2_forward(*args)
     for fused in (True, False):                          # loads every entry point
@@ -361,19 +406,37 @@ def plan_of(b, h, w, c, co):
     return plan
 
 
+def compared_library(kind, label):
+    """The built library of `--compare label=PATH` (kind "fwd" or "bwd")."""
+    import ctypes
+
+    return ctypes.CDLL(str(_build.BUILD / f"libcompare-{kind}-{label}.so"))
+
+
+def start_compared_builds():
+    """One nvcc for each `--compare` source, started together (the build phase
+    waits for them beside its own)."""
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for kind, pairs in (("fwd", COMPARE_FWD), ("bwd", COMPARE_BWD)):
+        for label, path in pairs:
+            out = _build.BUILD / f"libcompare-{kind}-{label}.so"
+            jobs.append((label, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return jobs
+
+
 def compared_launchers():
-    """{label: launch(args) -> out} for each `--compare LABEL=PATH`: the
-    source built as `_build` builds csrc/*.cu, loaded beside this checkout's
-    kernel, called through the same C interface (no launch is counted)."""
+    """{label: launch(args) -> out} for each `--compare LABEL=PATH` of the
+    forward source: built as `_build` builds csrc/*.cu, loaded beside this
+    checkout's kernel, called through the same C interface (no launch is
+    counted)."""
     import ctypes
 
     launchers = {}
-    for label, path in COMPARE:
-        lib_path = _build.BUILD / f"libcompare-{label}.so"
-        _build.BUILD.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), path],
-                       check=True, capture_output=True, text=True, timeout=600)
-        fn = ctypes.CDLL(str(lib_path)).dcn_v2_fwd_launch
+    for label, path in COMPARE_FWD:
+        fn = compared_library("fwd", label).dcn_v2_fwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -507,15 +570,17 @@ def phase_kernels():
 
 # -------------------------------------------------------- backward kernels
 def make_dout(seed, b, hw, co):
+    h, w = (hw, hw) if isinstance(hw, int) else hw
     rng = np.random.RandomState(seed + 1000)
-    return torch.from_numpy(rng.randn(b, hw, hw, co).astype(np.float32)).to(DEVICE)
+    return torch.from_numpy(rng.randn(b, h, w, co).astype(np.float32)).to(DEVICE)
 
 
 def bwd_bound_ms(b, hw, c, co, products, terms):
     """Least time the card could take for one backward kernel, float32:
-    max(2 * B*HW * 9C * Co operations per product / FMA peak, bytes / memory
-    rate) with each input read once (offset, mask, dout; x unless the kernel
-    is the dX one; W unless it is the dW one) and each output written once."""
+    max(2 * B*HW * 9C * Co operations per product / the float32-accurate
+    (3xTF32) peak, bytes / memory rate) with each input read once (offset,
+    mask, dout; x unless the kernel is the dX one; W unless it is the dW one)
+    and each output written once."""
     m = b * hw * hw
     flops = products * 2.0 * m * 9 * c * co
     elems = m * (18 + 9 + co)                                        # offset, mask, dout
@@ -547,13 +612,213 @@ def check_grads(args, dout, what):
     return worst
 
 
+def as_terms(name, out):
+    """A backward wrapper's result as (dx, doffset, dmask, dweight), None for
+    the terms the kernel does not compute."""
+    terms = BWD_KERNELS[name][3]
+    out = out if isinstance(out, tuple) else (out,)
+    full = [None] * 4
+    for i, t in zip(terms, out):
+        full[i] = t
+    return tuple(full)
+
+
+def bwd_plans(b, hw, c, co):
+    """The four backward kernels' plans at one call: `ops/dcn_bwd.py::bwd_plan`
+    must state what the built source chooses."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {}
+    for kind in dcn_bwd._KERNELS:
+        mine = dcn_bwd.bwd_plan(kind, b, h, w, c, co, sms)
+        built = dcn_bwd.kernel_bwd_plan(kind, b, h, w, c, co, sms)
+        require({k: mine[k] for k in built} == built,
+                f"dcn_v2_bwd_{kind} at {(b, h, w, c, co)}: built plan {built} != bwd_plan {mine}")
+        plans[kind] = {"grid": [mine["grid_x"], mine["grid_y"], mine["grid_z"]],
+                       "tiles": mine["tiles"], "chunks_per_block": mine["chunks_per_block"],
+                       "co_tiles": mine["co_tiles"], "smem_bytes": mine["smem_bytes"],
+                       "blocks_per_sm": mine["blocks_per_sm"],
+                       "scratch_mb": mine["scratch_floats"] * 4 / 2 ** 20}
+    return plans
+
+
+def bits_identical(args, dout):
+    """Each kernel called twice on the same operands: are its terms the same
+    bits? dW, d_offset and d_mask must be (sums of partials in a fixed
+    order); dX is a sum of atomics and is only reported."""
+    same = {}
+    for name, (fn, _, _, terms) in BWD_KERNELS.items():
+        one = as_terms(name, fn(*args[:4], dout))
+        two = as_terms(name, fn(*args[:4], dout))
+        torch.cuda.synchronize()
+        same[name] = {GRAD_NAMES[i]: bool(torch.equal(one[i], two[i])) for i in terms}
+        for i in terms:
+            require(i == 0 or same[name][GRAD_NAMES[i]],
+                    f"{name}: {GRAD_NAMES[i]} differs between two calls on the same operands")
+    return same
+
+
+def compared_bwd_launchers():
+    """{label: run(kind, args, dout) -> (dx, doffset, dmask, dweight)} for each
+    `--compare LABEL=PATH` of the backward source (no launch is counted). A
+    build that exports `dcn_v2_bwd_plan` is driven through this checkout's
+    wrapper with its own plan; an earlier one (no plan, no scratch, the weight
+    as [9C, Co], dX and dW zeroed by the caller) through its own interface."""
+    import ctypes
+
+    def old_interface(lib):
+        def run(kind, args, dout):
+            x, offset, mask, weight = args[:4]
+            b, h, w, c = x.shape
+            co = weight.shape[3]
+            fn = getattr(lib, f"dcn_v2_bwd_{kind}_launch")
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=DEVICE)  # noqa: E731
+            dx = zeros(b, h, w, c) if kind in ("fused", "dx") else None
+            doff = zeros(b, h, w, 18) if kind in ("fused", "dcoord") else None
+            dmask = zeros(b, h, w, 9) if kind in ("fused", "dcoord") else None
+            dw = zeros(3, 3, c, co) if kind in ("fused", "dw") else None
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+            err = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.contiguous().data_ptr(),
+                     dout.data_ptr(), ptr(dx), ptr(doff), ptr(dmask), ptr(dw), b, h, w, c, co,
+                     dcn_bwd.pixel_stride(offset, "offset", "compare"),
+                     dcn_bwd.pixel_stride(mask, "mask", "compare"),
+                     torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"compared backward launch failed: {err}")
+            return dx, doff, dmask, dw
+        return run
+
+    def new_interface(lib):
+        def run(kind, args, dout):
+            x, offset, mask, weight = args[:4]
+            return dcn_bwd._launch(kind, None if kind == "dx" else x, offset, mask, weight, dout, lib=lib)
+        return run
+
+    runs = {}
+    for label, _ in COMPARE_BWD:
+        lib = compared_library("bwd", label)
+        runs[label] = new_interface(lib) if hasattr(lib, "dcn_v2_bwd_plan") else old_interface(lib)
+    return runs
+
+
+def compare_bwd_bodies(runs, args, dout, ref, hw, c, co):
+    """Every backward kernel of this checkout and of each compared build at one
+    case: the compared build's terms against the plain version (the same
+    tolerance), and device times in turns (other, this, this, other), 10
+    calls each queued behind a device sleep."""
+    rows = {}
+    for label, run in runs.items():
+        rows[label] = {}
+        for name, (fn, _, _, terms) in BWD_KERNELS.items():
+            kind = name[len("dcn_v2_bwd_"):]
+            got = run(kind, args, dout)
+            torch.cuda.synchronize()
+            for i in terms:
+                err = (got[i] - ref[i]).abs().max().item()
+                limit = TOL_BWD_REL * ref[i].abs().max().item() + TOL_BWD_ABS
+                require(err <= limit, f"compared {label} {name} at {(hw, c, co)}: {GRAD_NAMES[i]} off by {err}")
+            t = [time_ms(lambda: run(kind, args, dout), iters=10, queued=True),
+                 time_ms(lambda: fn(*args[:4], dout), iters=10, queued=True),
+                 time_ms(lambda: fn(*args[:4], dout), iters=10, queued=True),
+                 time_ms(lambda: run(kind, args, dout), iters=10, queued=True)]
+            rows[label][name] = {"other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+                                 "ratio": (t[1] + t[2]) / (t[0] + t[3])}
+    return rows
+
+
+# Phase boundaries of the fused backward kernel: each is the barrier that
+# ends the phase, found by text in the source (`clock_source`).
+CLOCK_PHASES = ("coordinate sums", "tile prologue", "gs product", "gather", "dW product")
+CLOCK_MARK = ("{ const long long _n = clock64(); if (threadIdx.x == 0) _ph[%d] += _n - _last;"
+              " _last = _n; }\n")
+
+
+def clock_source(src: str) -> str:
+    """The backward source with thread 0 of every block adding the clock64()
+    cycles between consecutive barriers of a tile to per-phase counters, and
+    `prof_read` / `prof_reset` to read them (summed over blocks) from the host."""
+    def after(text, pos, mark):
+        i = src.index(text, pos) + len(text)
+        return src[:i] + "\n" + CLOCK_MARK % mark + src[i:], i
+
+    src = src.replace("namespace {", "__device__ unsigned long long g_clock[8];\nnamespace {", 1)
+    src = src.replace("  const int tid = threadIdx.x;\n", "  const int tid = threadIdx.x;\n"
+                      "  long long _ph[5] = {0, 0, 0, 0, 0}; long long _last = clock64();\n", 1)
+    src, _ = after("__syncthreads();   // every reader of the previous tile's buffers is done", 0, 0)
+    end_prologue = src.rindex("__syncthreads();", 0, src.index("    float psum[4][3];"))
+    src, _ = after("__syncthreads();", end_prologue, 1)
+    end_gs = src.rindex("__syncthreads();", 0, src.index("// ---- 2. one gather"))
+    src, _ = after("__syncthreads();", end_gs, 2)
+    src, i = after("__syncthreads();   // the column tile is written", 0, 3)
+    src, _ = after("__syncthreads();", i, 4)
+    tail = src.index("  // ---- the slab's dW partial, written once")
+    src = (src[:tail] + "  if (threadIdx.x == 0) { for (int i = 0; i < 5; ++i) atomicAdd(&g_clock[i], "
+           "(unsigned long long)_ph[i]); atomicAdd(&g_clock[5], (unsigned long long)(tile1 - tile0)); }\n"
+           + src[tail:])
+    return src + ('\nextern "C" int prof_read(unsigned long long* out) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(out, g_clock, sizeof(g_clock));\n}\n'
+                  'extern "C" int prof_reset() {\n  unsigned long long z[8] = {0};\n'
+                  '  return (int)cudaMemcpyToSymbol(g_clock, z, sizeof(z));\n}\n')
+
+
+def phase_clocks():
+    """Cycles per tile per block in each phase of the fused kernel, for this
+    checkout's backward source and each compared one, at every production
+    shape at B=8 (one queued run of 10 calls each)."""
+    import ctypes
+
+    def read(path):
+        with open(path) as fh:
+            return fh.read()
+
+    sources = [("this", os.path.join(_build.CSRC, "dcn_v2_bwd.cu"))] + [
+        (label, path) for label, path in COMPARE_BWD if "dcn_v2_bwd_plan" in read(path)]
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for label, path in sources:
+        src = _build.BUILD / f"clock-{label}.cu"
+        src.write_text(clock_source(read(path)))
+        out = _build.BUILD / f"libclock-{label}.so"
+        jobs.append((label, out, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    rows = {}
+    for label, out, job in jobs:
+        log, _ = job.communicate(timeout=900)
+        require(job.returncode == 0, f"nvcc failed for the clocked {label}:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        counts = (ctypes.c_ulonglong * 8)()
+        rows[label] = {}
+        for hw, c, co in PRODUCTION_SHAPES:
+            args = make_case(30, TRAIN_BATCH, hw, c, co, torch.float32, "uniform")
+            dout = make_dout(30, TRAIN_BATCH, hw, co)
+            run = lambda: dcn_bwd._launch("fused", args[0], args[1], args[2], args[3], dout, lib=lib)  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            require(lib.prof_reset() == 0, "clock reset failed")
+            ms = time_ms(run, iters=10, warmup=0, queued=True)
+            require(lib.prof_read(counts) == 0, "clock read failed")
+            tiles = max(int(counts[5]), 1)
+            rows[label][f"{hw}x{c}x{co}"] = {
+                "ms": ms, "cycles_per_tile": dict(zip(CLOCK_PHASES, (counts[i] / tiles for i in range(5))))}
+            del args, dout
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels_bwd():
-    """The four backward kernels on the 7 production shapes, float32."""
+    """The four backward kernels on the 7 production shapes and the tails,
+    float32: agreement, plans, bits across two calls, times (in turns with
+    every compared build)."""
     cases = [(20 + s, 2, k) for s, k in enumerate(("uniform", "integer", "off_image", "dy20"))]
     cases.append((30, TRAIN_BATCH, "uniform"))
     per_shape = {name: [] for name in BWD_KERNELS}
-    n_cases = 0
+    runs = compared_bwd_launchers()
+    plans, same_bits, n_cases = {}, {}, 0
     for hw, c, co in PRODUCTION_SHAPES:
+        key = f"{TRAIN_BATCH}x{hw}x{hw}x{c}x{co}"
+        plans[key] = bwd_plans(TRAIN_BATCH, hw, c, co)
         worst = {name: 0.0 for name in BWD_KERNELS}
         for seed, b, kind in cases:
             args = make_case(seed, b, hw, c, co, torch.float32, kind)
@@ -561,22 +826,45 @@ def phase_kernels_bwd():
             got = check_grads(args, dout, f"shape {(b, hw, hw, c, co)} {kind}")
             worst = {k: max(worst[k], got[k]) for k in worst}
             n_cases += 1
-        # `args`, `dout` are now the last case, at the training batch: the times.
+        # `args`, `dout` are now the last case, at the training batch: bits
+        # across two calls, then the times.
+        same_bits[key] = bits_identical(args, dout)
+        ref = dcn_bwd.dcn_v2_grads_plain(*args, dout)
+        compared = compare_bwd_bodies(runs, args, dout, ref, hw, c, co)
+        del ref
         plain_ms = time_ms(lambda: dcn_bwd.dcn_v2_grads_plain(*args, dout), iters=2, warmup=1)
         for name, (fn, _, products, terms) in BWD_KERNELS.items():
-            ms = time_ms(lambda: fn(*args[:4], dout), iters=10)
+            ms = time_ms(lambda: fn(*args[:4], dout), iters=10, queued=True)
             bound, bound_by = bwd_bound_ms(TRAIN_BATCH, hw, c, co, products, terms)
-            per_shape[name].append({
-                "shape": [TRAIN_BATCH, hw, hw, c, co], "max_abs_err": worst[name], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            })
+            row = {"shape": [TRAIN_BATCH, hw, hw, c, co], "max_abs_err": worst[name], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                   "plan": plans[key][name[len("dcn_v2_bwd_"):]],
+                   "bits_identical": same_bits[key][name]}
+            if compared:
+                row["compared"] = {label: rows[name] for label, rows in compared.items()}
+            per_shape[name].append(row)
         del args, dout
+    # Tails: C, Co and the pixels not multiples of the tiles; the last (Co >
+    # 256) is cut into two launches by the wrapper.
+    tails = []
+    for c, co in BWD_TAIL_SHAPES:
+        worst = {name: 0.0 for name in BWD_KERNELS}
+        for seed, b, kind in ((40, 1, "uniform"), (41, 2, "uniform"), (42, 1, "off_image"), (43, 2, "integer")):
+            args = make_case(seed, b, TAIL_HW, c, co, torch.float32, kind)
+            dout = make_dout(seed, b, TAIL_HW, co)
+            got = check_grads(args, dout, f"tail {(b, *TAIL_HW, c, co)} {kind}")
+            worst = {k: max(worst[k], got[k]) for k in worst}
+            n_cases += 1
+        tails.append({"shape": [2, *TAIL_HW, c, co], "max_abs_err": worst,
+                      "plans": bwd_plans(2, TAIL_HW, c, co) if co <= dcn_bwd.BWD_MAX_CO else None})
+    clocks = phase_clocks() if CLOCK else None
     torch.cuda.empty_cache()
     reset_launches()
-    emit({"phase": "kernels_bwd", "cases": n_cases, "dtype": "float32",
+    emit({"phase": "kernels_bwd", "cases": n_cases, "dtype": "float32", "clock_cycles_per_tile": clocks,
           "tolerance": {"rel_to_term_max": TOL_BWD_REL, "abs": TOL_BWD_ABS},
           "plain": "dcn_v2_grads_plain (all five terms; the yardstick of every kernel)",
-          "library": None, "per_shape": per_shape})
+          "library": None, "plans": plans, "bits_identical": same_bits, "tails": tails,
+          "per_shape": per_shape})
     return per_shape
 
 
@@ -1310,6 +1598,9 @@ def main() -> int:
             "tracking launches by shape do not add up to the counter")
     summary = {"kernels": entries + [row_kernel_entry(entries, per_forward, track_launches)]
                + backward_entries(bwd_per_shape, per_forward, train_counts)}
+    # A kernel faster than its bound would mean a wrong bound, not a fast kernel.
+    for e in summary["kernels"]:
+        require(e["bound_ms"] <= e["ms"], f"{e['name']} {e.get('shape', '')}: {e['ms']} ms under its bound {e['bound_ms']}")
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     if OUT_DIR:
         os.makedirs(OUT_DIR, exist_ok=True)
