@@ -6,10 +6,19 @@ stride-1, pad-1, dilation-1 convolution, and dispatches on the device of the
 tensors it is given, and on nothing else:
 
   * CUDA tensors launch `csrc/dcn_v2_fwd.cu` (the counterpart of the TPU
-    kernel `centerpose_tpu/ops/dcn_onehot.py::_grouped_kernel`), or raise:
-    unsupported type, shape or stride, a failed build and a refused launch
-    are all errors. There is no fallback to the plain version.
+    kernels `centerpose_tpu/ops/dcn_onehot.py::_grouped_kernel` and, on the
+    tracking path, `_row_kernel`), or raise: unsupported type, shape or
+    stride, a failed build and a refused launch are all errors. There is no
+    fallback to the plain version.
   * CPU tensors take the plain version, `ops/dcn.py::dcn_v2`.
+
+Two bodies: bfloat16 (`dcn_v2_fwd_launch`, tiling `bf16_plan`) and float32
+(`dcn_v2_fwd_f32_launch`, tiling `f32_plan`), both `wgmma` from swizzled
+shared memory; the float32 one in 3xTF32 (every operand split into TF32 hi
+and lo parts, `ops/dcn_bwd.py::split_tf32`, three products), with the K loop
+split over blocks where the grid is small. Its scratch (a K-major hi/lo copy
+of the weight, and the partial sums of a split K loop) is allocated here, at
+the sizes `f32_plan` states. Its output is the same bits in every call.
 
 It is differentiable on both devices. On the CPU ordinary autograd goes
 through the plain version. On CUDA, when a gradient is being recorded (an
@@ -42,6 +51,20 @@ BF16_BLOCK_M = 64
 BF16_STAGES = 3
 _TAPS = 9
 
+# The float32 kernel's tiling (`dcn_v2_fwd_f32_plan`): 64 output pixels per
+# block, steps of 32 input channels (one 128-byte row of floats), a ring of 2
+# stages of hi and lo tiles (two blocks per SM), a K loop split into ranges of
+# at least 4 steps where the grid is below one wave of an H100's 132 SMs.
+F32_BLOCK_M = 64
+F32_BK = 32
+F32_STAGES = 2
+F32_BLOCKS_PER_SM = 2
+F32_MIN_RANGE = 4
+F32_SMS = 132
+_ROW_BYTES = 128
+_F32_PLAN_KEYS = ("block_m", "block_n", "grid", "split", "smem_bytes", "stages",
+                  "blocks_per_sm", "scratch_bytes")
+
 
 def bf16_plan(b: int, h: int, w: int, c: int, co: int) -> dict:
     """Tile, grid and dynamic shared memory of the bf16 kernel for one call,
@@ -71,15 +94,73 @@ def kernel_bf16_plan(b: int, h: int, w: int, c: int, co: int) -> dict:
             "smem_bytes": plan[4], "stages": plan[5]}
 
 
+def f32_plan(b: int, h: int, w: int, c: int, co: int) -> dict:
+    """Tile, grid, split of the K loop, shared memory and scratch of the
+    float32 kernel for one call, as `dcn_v2_fwd_f32_launch` chooses them.
+
+    A block owns 64 pixels and 64 output channels where Co <= 64, else 128,
+    and `split` ranges of the n = 9 * ceil(C / 32) steps (chunk-major: the 9
+    taps of one 32-channel chunk, then the next chunk), range z = steps
+    [n z / split, n (z + 1) / split) (grid z). `split` > 1 only where pixel
+    tiles x channel tiles are fewer than 132 blocks: enough ranges for one
+    wave, each of at least 4 steps. `smem_bytes` = 1024 (alignment) + 2
+    stages of column and weight tiles, hi and lo, + the corner tables (one
+    index and four weights per (tap, pixel)); `blocks_per_sm` is the
+    kernel's launch bound. `scratch_bytes`
+    = the weight's hi/lo copy [2, Co, 9C] + the partials [split, M, Co]
+    where split > 1, float32."""
+    m = b * h * w
+    if c <= 0 or co <= 0 or c % 8 or co % 8 or m <= 0 or m + 2 * w + 2 >= 2 ** 31:
+        raise ValueError(f"f32_plan: unsupported C={c}, Co={co}, B*H*W={m}")
+    bn = 64 if co <= 64 else 128
+    gx, gy = -(-m // F32_BLOCK_M), -(-co // bn)
+    steps = _TAPS * -(-c // F32_BK)
+    split = 1
+    if gx * gy < F32_SMS:
+        split = max(1, min(-(-F32_SMS // (gx * gy)), steps // F32_MIN_RANGE))
+    stage = 2 * (F32_BLOCK_M + bn) * _ROW_BYTES                 # hi + lo of both tiles
+    tables = _TAPS * F32_BLOCK_M * 20                          # one corner index + 4 weights
+    scratch = 4 * (2 * _TAPS * c * co + (split * m * co if split > 1 else 0))
+    return dict(zip(_F32_PLAN_KEYS, (
+        F32_BLOCK_M, bn, [gx, gy], split, 1024 + F32_STAGES * stage + tables, F32_STAGES,
+        F32_BLOCKS_PER_SM, scratch)))
+
+
+def kernel_f32_plan(b: int, h: int, w: int, c: int, co: int, lib=None) -> dict:
+    """The plan the built float32 kernel reports for one call (the keys of
+    `f32_plan`), of this checkout's build or of `lib`; raises for a shape it
+    does not take."""
+    lib = lib if lib is not None else _library()
+    fn = lib.dcn_v2_fwd_f32_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_longlong * 9)()
+    if fn(b, h, w, c, co, plan) != 0:
+        raise ValueError(f"dcn_v2_forward: the float32 kernel does not take {(b, h, w, c, co)}")
+    v = [int(x) for x in plan]
+    return dict(zip(_F32_PLAN_KEYS, v[:2] + [[v[2], v[3]]] + v[4:]))
+
+
 def _library() -> ctypes.CDLL:
-    lib = _build.load("dcn_v2_fwd")
+    return _declare(_build.load("dcn_v2_fwd"))
+
+
+def _declare(lib):
+    """Declares the C signatures of a built forward source's launch entries
+    (c_void_p for every pointer and the stream: ctypes would otherwise pass a
+    Python int as a 32-bit int and cut the address)."""
     fn = lib.dcn_v2_fwd_launch
     if fn.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would otherwise
-        # pass a Python int as a 32-bit int and cut the address.
         fn.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    fn = lib.dcn_v2_fwd_f32_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
@@ -100,9 +181,12 @@ def kernel_weight(weight_oihw: torch.Tensor) -> torch.Tensor:
     return weight_oihw.permute(2, 3, 1, 0).contiguous()
 
 
-def _launch_forward(x, offset, mask, weight, bias) -> torch.Tensor:
-    """Check the CUDA operands, allocate the output and launch the forward
-    kernel on the current stream."""
+def _launch_forward(x, offset, mask, weight, bias, lib=None) -> torch.Tensor:
+    """Check the CUDA operands, allocate the output (and, for float32, the
+    scratch its plan states) and launch the forward kernel on the current
+    stream. `lib` is another build of the source with the same C interface
+    (for comparisons): its plan is its own, and its launches are not
+    counted."""
     tensors = (x, offset, mask, weight, bias)
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
         raise TypeError(
@@ -137,25 +221,43 @@ def _launch_forward(x, offset, mask, weight, bias) -> torch.Tensor:
         # the caller already holds it so (`kernel_weight`).
         w_mat = weight.permute(3, 0, 1, 2).contiguous()
     else:
-        w_mat = weight.contiguous()                      # [9C, Co]
+        # [9C, Co], as the caller holds it; the call makes its own K-major
+        # hi/lo copy in the scratch below.
+        w_mat = weight.contiguous()
+        plan = f32_plan(b, h, w, c, co)
     if x.data_ptr() % 16 or w_mat.data_ptr() % 16:
         raise ValueError("dcn_v2_forward: x and weight must be 16-byte aligned")
 
-    lib = _library()
+    mine = lib is None
+    lib = _library() if mine else _declare(lib)
     out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dcn_v2_fwd_launch(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w_mat.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, h, w, c, co,
-            off_stride, mask_stride, _DTYPES[x.dtype], stream,
-        )
+        if x.dtype == torch.bfloat16:
+            err = lib.dcn_v2_fwd_launch(
+                x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w_mat.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), b, h, w, c, co,
+                off_stride, mask_stride, _DTYPES[x.dtype], stream,
+            )
+        else:
+            if not mine:
+                plan = kernel_f32_plan(b, h, w, c, co, lib)
+            w_split = torch.empty((2, co, _TAPS * c), dtype=torch.float32, device=x.device)
+            n_part = plan["scratch_bytes"] // 4 - w_split.numel()
+            partials = torch.empty((n_part,), dtype=torch.float32, device=x.device)
+            err = lib.dcn_v2_fwd_f32_launch(
+                x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w_mat.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), w_split.data_ptr(),
+                partials.data_ptr() if n_part else None, n_part, b, h, w, c, co,
+                off_stride, mask_stride, stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"dcn_v2_forward: kernel launch failed with CUDA error {err} for "
             f"x {tuple(x.shape)} -> Co={co}, {x.dtype}"
         )
-    dcn_v2_forward.launches += 1
+    if mine:
+        dcn_v2_forward.launches += 1
     return out
 
 
@@ -220,9 +322,10 @@ def dcn_v2_forward(
     Returns [B, H, W, Co] in `x.dtype`. On CUDA: float32 or bfloat16, all
     operands of one type, C and Co multiples of 8. The output is allocated
     here, and a copy of the weight where its memory layout is not the one the
-    kernel of that type reads ([9C, Co] for float32, [Co, 9C] for bfloat16);
-    the kernel allocates nothing and runs on the current stream without
-    synchronising. Where a gradient is recorded the result carries a graph
+    kernel of that type reads ([9C, Co] for float32, [Co, 9C] for bfloat16),
+    and for float32 the scratch of `f32_plan`; the kernel allocates nothing
+    and runs on the current stream without synchronising. Where a gradient
+    is recorded the result carries a graph
     whose backward is the backward kernels (float32 only).
     """
     tensors = (x, offset, mask, weight, bias)
