@@ -1,5 +1,6 @@
 // DCNv2 backward (modulated deformable 3x3 convolution, stride 1, pad 1,
-// dilation 1, one deformable group, NHWC, float32) for NVIDIA Hopper (sm_90a).
+// dilation 1, one deformable group, NHWC, float32 or bfloat16 operands) for
+// NVIDIA Hopper (sm_90a).
 //
 // Replaces the four TPU kernels of `centerpose_tpu/ops/dcn_bwd.py`:
 //
@@ -8,7 +9,10 @@
 //   dcn_v2_bwd_dcoord_launch  <- `_dcoord_kernel`  d_offset, d_mask alone
 //   dcn_v2_bwd_dw_launch      <- `_dw_kernel`      dW alone
 //
-// and computes what they compute. With p_t = (h - 1 + i + dy_t, w - 1 + j +
+// (float32 operands) and `dcn_v2_bwd_{fused,dx,dcoord,dw}_bf16_launch`, the
+// same four with bfloat16 operands: what those TPU kernels compute with
+// `dt = bf16` (products of bf16 operands, float32 accumulators, mixed-
+// precision training). With p_t = (h - 1 + i + dy_t, w - 1 + j +
 // dx_t) for tap t = 3 i + j, v00..v11 the four corners of x around p_t (0
 // outside the image), fy = py - floor(py), fx likewise, m_t the gate and
 //
@@ -33,21 +37,28 @@
 // cannot gather or scatter; here a corner's channels are one 16-byte load or
 // one 16-byte vector atomic per thread from channel-contiguous memory.
 //
-// Layouts (contiguous unless a stride is given):
-//   x [B,H,W,C]   offset [B,H,W,18] (pixel stride off_stride)
-//   mask [B,H,W,9] (pixel stride mask_stride)   weight [9*C, Co]
-//   dout [B,H,W,Co]   dX [B,H,W,C] (zeroed by the caller)
-//   d_offset [B,H,W,18]   d_mask [B,H,W,9]   dW [9*C, Co]
+// Layouts (contiguous unless a stride is given), T = float or bf16:
+//   x [B,H,W,C] T   offset [B,H,W,18] T (pixel stride off_stride)
+//   mask [B,H,W,9] T (pixel stride mask_stride)   weight [9*C, Co] T
+//   dout [B,H,W,Co] T   dX [B,H,W,C] float32 (zeroed by the caller)
+//   d_offset [B,H,W,18], d_mask [B,H,W,9], dW [9*C, Co]: float32
 //   scratch: the float count `dcn_v2_bwd_plan` states (the caller allocates it)
+// Every term is float32 whatever T is; the caller casts to the primal types.
 // C and Co are multiples of 8, Co at most 256 (the caller splits a wider
 // Co); B, H, W are free.
 //
-// Design. One template, four instantiations of terms, all float32-accurate on
-// the tensor cores: every product is three TF32 `mma.sync.m16n8k8` (3xTF32),
+// Design. One template, four instantiations of terms and two operand types.
+// float32 operands: every product is three TF32 `mma.sync.m16n8k8` (3xTF32),
 // a = a_hi + a_lo with a_hi = rna_tf32(a), a_lo = rna_tf32(a - a_hi), and
 // a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi in float32 registers (the dropped
 // a_lo.b_lo and the roundings are ~2^-22 of each term: one TF32 product is
-// ~2^-11, too coarse for the gradient check). A block (256 threads, 8 warps)
+// ~2^-11, too coarse for the gradient check). bfloat16 operands: each of
+// those three products is one `mma.sync.m16n8k16.bf16` (float32
+// accumulators) on operands that are bf16 already (x, W, dout) or rounded
+// to bf16 where they are written (gs, the column tile m * bil), as the TPU
+// kernel rounds them (`_gs_lanes(..., dt)`, `sampm.astype(dt)`); the dout
+// tile is one bf16 copy, half the bytes of the float32 hi/lo pair. A block
+// (256 threads, 8 warps)
 // owns one tap, a slab of consecutive 64-pixel tiles and, with dW, NCH (1 or
 // 2) chunks of 64 input channels, without dW every chunk (nothing is then
 // accumulated over the slab); grid = slabs x 9 taps x channel groups, the
@@ -55,34 +66,39 @@
 // Per tile:
 //   0. the corners of the tile's 64 samples (base index, validity bits, fy,
 //      fx, gate) and the dout tile [64 px][Co] are put in shared memory, the
-//      dout tile already split into hi / lo; it stays there for every chunk
-//      of the block and serves both products;
+//      dout tile already split into hi / lo (float32) or as it is (bf16); it
+//      stays there for every chunk of the block and serves both products;
 //   1. per chunk, gs[px][c] = dout tile . W_t^T (K = Co), warps of 32 px x
-//      16 c. The weight is read as ready-made B fragments (hi, lo) from a
-//      [9, C/8, Co/8, 32 lanes, 4] copy that a small kernel of this file
-//      makes at the start of every call;
-//   2. one gather of the four corners (16-byte loads) and one gs patch per
-//      thread feed the dX atomics (16-byte vector `red`, corners of weight 0
-//      and corners outside skipped), the three coordinate sums (registers,
-//      reduced over the 16 threads of a pixel with shuffles, written once)
-//      and the column tile m * bil, split into hi / lo in shared memory;
+//      16 c. The weight is read as ready-made B fragments (float32: hi, lo;
+//      bf16: pairs along K) from a [9, C/8, K steps, 32 lanes] copy that a
+//      small kernel of this file makes at the start of every call;
+//   2. one gather of the four corners (16-byte loads, 8-byte for bf16) and one
+//      gs patch per thread feed the dX atomics (16-byte vector `red`, float32
+//      whatever T is; corners of weight 0 and corners outside skipped), the
+//      three coordinate sums (registers, reduced over the 16 threads of a
+//      pixel with shuffles, written once) and the column tile m * bil, split
+//      into hi / lo in shared memory (bf16: rounded, stored transposed
+//      [c][px] so that a B fragment pair along the pixels is one word);
 //   3. dW_t^T[co][c] += dout tile^T . column tile (K = the tile's 64 pixels),
 //      warps of 16*NCO co x 32 c, accumulated in registers over the whole
 //      slab and written once per block.
-// Shared tiles are row-major with an XOR swizzle of bits 2-4 of the column
-// (`swz`), so that both fragment orientations (row by lane/4, column by
-// lane%4, and the transposed one) read 32 distinct banks.
+// Float32 shared tiles are row-major with an XOR swizzle of bits 2-4 of the
+// column (`swz`), so that both fragment orientations (row by lane/4, column by
+// lane%4, and the transposed one) read 32 distinct banks; bf16 tiles XOR the
+// 16-byte chunk of a row with the row (`swb`), for the same end.
 // Sums across blocks are deterministic: each block writes its dW partial to
 // scratch [slabs, 9C, Co] (or straight to dW for one slab), and its
 // coordinate sums to [groups, M, 18 + 9] partials (or straight to the
 // outputs for one channel group); a second small kernel adds the partials in
 // a fixed order. So dW, d_offset and d_mask are the same bits in every run;
-// dX is a sum of float atomics and is not.
+// dX is a sum of float atomics and is not (bf16 operands too: dX is summed
+// in float32, a bf16 atomic would lose the sum).
 //
 // Bound on an H100: both products are 2 * B*HW * 9C * Co operations against
 // tens of megabytes moved, so every production shape is bound by operations.
 // Float32-accurate products on this card are the tensor cores' 3xTF32: three
-// TF32 products at 495 TFLOP/s, an effective 165 TFLOP/s. What the card
+// TF32 products at 495 TFLOP/s, an effective 165 TFLOP/s; bf16 products run
+// at 989 TFLOP/s. What the card
 // spends (`chip_smoke.py --clock`: cycles per 64-pixel tile of a block,
 // PERF.md): the two product phases are about half of a tile at 128x128
 // and more at the wider layers, and their time follows the count of
@@ -94,13 +110,17 @@
 // memory once per (tile, tap, channel group), no atomics for dW. What it
 // does not do yet: issue the products as `wgmma` with whole K loops in
 // flight (a version with both products on wgmma.m64n32k8, A from registers
-// and a barrier per k-step, was right but no faster, PERF.md), and bf16
-// operands.
+// and a barrier per k-step, was right but no faster, PERF.md); the bf16
+// body is the float32 one with one product in place of three, not yet
+// made fast on its own.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int BM = 64;    // pixels per tile
 constexpr int BC = 64;    // input channels per chunk
@@ -115,6 +135,16 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
+
+// 4 consecutive bf16 (8 bytes) as floats: a bf16 is the top half of a float.
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(a.x << 16); v[1] = __uint_as_float(a.x & 0xffff0000u);
+  v[2] = __uint_as_float(a.y << 16); v[3] = __uint_as_float(a.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
 
 // 16-byte vector atomic add to global memory (compute capability 9.x).
 __device__ __forceinline__ void add4(float* p, float s, const float (&v)[4]) {
@@ -141,6 +171,12 @@ __device__ __forceinline__ void split4(const float (&v)[4], float4& hi, float4& 
   split1(v[3], hi.w, lo.w);
 }
 
+// Two floats rounded to bf16 (to nearest even) in one word, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // Column of element (row, col) of a shared tile whose row length is a
 // multiple of 32 floats: bits 2-4 of the column XOR h(row % 8), h(q) =
 // ((q & 3) << 1) | (q >> 2). A fragment read with the row by lane/4 and the
@@ -150,6 +186,12 @@ __device__ __forceinline__ int swz(int row, int col) {
   const int q = row & 7;
   return col ^ ((((q & 3) << 1) | (q >> 2)) << 2);
 }
+
+// The same for a bf16 tile whose row length is a multiple of 64 elements:
+// the 16-byte chunk (8 elements) of the column XOR row % 8. A word read with
+// the row by lane/4 and two elements by lane%4 meets 32 distinct banks, and
+// a chunk stays contiguous.
+__device__ __forceinline__ int swb(int row, int col) { return col ^ ((row & 7) << 3); }
 
 __device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
 
@@ -171,12 +213,34 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh[0], bh[1]);
 }
 
+// d += a.b, bf16 operands, float32 accumulators: a = (row g, k 2tg..2tg+1),
+// (g+8, 2tg..), (g, 2tg+8..), (g+8, 2tg+8..); b = (k 2tg..2tg+1, n g), (k
+// 2tg+8.., n g); d as the TF32 product's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pair16(const bf16* lo, const bf16* hi) {
+  return (uint32_t)*reinterpret_cast<const uint16_t*>(lo) |
+         ((uint32_t)*reinterpret_cast<const uint16_t*>(hi) << 16);
+}
+
 struct BwdArgs {
-  const float* x;
-  const float* offset;
-  const float* mask;
-  const float4* wfrag;   // [9, C/8, Co/8, 32, 4] (b0 hi, b1 hi, b0 lo, b1 lo)
-  const float* dout;
+  const void* x;         // T
+  const void* offset;    // T
+  const void* mask;      // T
+  const void* wfrag;     // float32: float4 [9, C/8, Co/8, 32] (b0 hi, b1 hi, b0 lo, b1 lo);
+                         // bf16: uint2 [9, C/8, ceil(Co/16), 32] (b0, b1)
+  const void* dout;      // T
   float* dx;
   float* doffset;        // [groups, M, 18] (groups = 1: the output itself)
   float* dmask;          // [groups, M, 9]
@@ -188,20 +252,32 @@ struct BwdArgs {
   int cop, cop_log2;     // row length of the dout tile: 64, 128 or 256
 };
 
-template <bool DX, bool DCOORD, bool DW, int NCH, int NCO>
+template <typename T, bool DX, bool DCOORD, bool DW, int NCH, int NCO>
 __global__ void __launch_bounds__(NT, !DW ? (NCO == 1 ? 3 : 2) : ((NCH * NCO <= 2) ? 2 : 1))
 dcn_v2_bwd_kernel(const BwdArgs a) {
+  constexpr bool BF = sizeof(T) == 2;    // bf16 operands
   constexpr bool GS = DX || DCOORD;      // needs gs = W_t . dout
   constexpr bool GATHER = DCOORD || DW;  // needs the corners of x
 
   extern __shared__ __align__(16) float smem[];
   const int cop = a.cop;
+  // float32: dout tile hi / lo, then gs and the columns' hi, the columns' lo.
   float* d_hi = smem;                    // [BM][cop] dout tile, swizzled
   float* d_lo = d_hi + BM * cop;
   float* g_hi = d_lo + BM * cop;         // [BM][BC] gs, then the columns' hi
   float* g_lo = g_hi + BM * BC;          // the columns' lo (DW)
-  int2* s_pos = reinterpret_cast<int2*>(g_lo + (DW ? BM * BC : 0));   // corner 00, bits
+  // bf16: the dout tile, gs, the columns transposed.
+  bf16* d_b = reinterpret_cast<bf16*>(smem);   // [BM][cop], swizzled (swb)
+  bf16* gs_b = d_b + BM * cop;                 // [BM][BC] (GS)
+  bf16* col_b = gs_b + (GS ? BM * BC : 0);     // [BC][BM] (DW)
+  int2* s_pos = BF ? reinterpret_cast<int2*>(col_b + (DW ? BC * BM : 0))
+                   : reinterpret_cast<int2*>(g_lo + (DW ? BM * BC : 0));   // corner 00, bits
   float4* s_par = reinterpret_cast<float4*>(s_pos + BM);     // fy, fx, gate
+
+  const T* __restrict__ xg = static_cast<const T*>(a.x);
+  const T* __restrict__ offg = static_cast<const T*>(a.offset);
+  const T* __restrict__ maskg = static_cast<const T*>(a.mask);
+  const T* __restrict__ doutg = static_cast<const T*>(a.dout);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -245,9 +321,9 @@ dcn_v2_bwd_kernel(const BwdArgs a) {
         const int r = (int)p - b * HW;
         const int h = r / W;
         const int w = r - h * W;
-        const float* op = a.offset + p * a.off_stride + 2 * t;
-        float py = (float)(h - 1 + t / 3) + op[0];
-        float px = (float)(w - 1 + t % 3) + op[1];
+        const T* op = offg + p * a.off_stride + 2 * t;
+        float py = (float)(h - 1 + t / 3) + ldf(op);
+        float px = (float)(w - 1 + t % 3) + ldf(op + 1);
         // Clamp before the int cast: a clamped sample has every corner outside.
         py = fminf(fmaxf(py, -2.f), (float)(H + 1));
         px = fminf(fmaxf(px, -2.f), (float)(W + 1));
@@ -259,18 +335,29 @@ dcn_v2_bwd_kernel(const BwdArgs a) {
         pos.x = b * HW + y0 * W + x0;
         pos.y = (vy0 && vx0 ? 1 : 0) | (vy0 && vx1 ? 2 : 0) |
                 (vy1 && vx0 ? 4 : 0) | (vy1 && vx1 ? 8 : 0);
-        par = make_float4(py - fy0, px - fx0, a.mask[p * a.mask_stride + t], 0.f);
+        par = make_float4(py - fy0, px - fx0, ldf(maskg + p * a.mask_stride + t), 0.f);
       }
       s_pos[tid] = pos;
       s_par[tid] = par;
     }
-    {
+    if constexpr (BF) {
+      // 16-byte chunks of 8 channels, copied as they are (zeros past Co).
+      const int qlog = a.cop_log2 - 3;          // chunks per row: cop / 8
+      for (int i = tid; i < (BM * cop) >> 3; i += NT) {
+        const int r = i >> qlog;
+        const int c8 = (i & ((1 << qlog) - 1)) << 3;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (m0 + r < M && c8 < Co)
+          v = __ldg(reinterpret_cast<const uint4*>(doutg + (m0 + r) * Co + c8));
+        *reinterpret_cast<uint4*>(d_b + r * cop + swb(r, c8)) = v;
+      }
+    } else {
       const int qlog = a.cop_log2 - 2;          // float4s per row: cop / 4
       for (int i = tid; i < (BM * cop) >> 2; i += NT) {
         const int r = i >> qlog;
         const int c4 = (i & ((1 << qlog) - 1)) << 2;
         float v[4] = {0.f, 0.f, 0.f, 0.f};
-        if (m0 + r < M && c4 < Co) load4(a.dout + (m0 + r) * Co + c4, v);
+        if (m0 + r < M && c4 < Co) load4(reinterpret_cast<const float*>(doutg) + (m0 + r) * Co + c4, v);
         float4 hi, lo;
         split4(v, hi, lo);
         const int o = r * cop + swz(r, c4);
@@ -299,55 +386,98 @@ dcn_v2_bwd_kernel(const BwdArgs a) {
             for (int j = 0; j < 2; ++j)
 #pragma unroll
               for (int k = 0; k < 4; ++k) gacc[i][j][k] = 0.f;
-          const int ctiles = C >> 3, ksteps = Co >> 3;
-          for (int ks = 0; ks < ksteps; ++ks) {
-            uint32_t bh[2][2], bl[2][2];
+          const int ctiles = C >> 3;
+          if constexpr (BF) {
+            const int ksteps = (Co + 15) >> 4;
+            const uint2* wf = static_cast<const uint2*>(a.wfrag);
+            for (int ks = 0; ks < ksteps; ++ks) {
+              uint32_t b[2][2];
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const int ct = (c0 + gn + nt * 8) >> 3;
-              float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-              if (ct < ctiles)
-                v = __ldg(a.wfrag + (((size_t)t * ctiles + ct) * ksteps + ks) * 32 + lane);
-              bh[nt][0] = bits(v.x); bh[nt][1] = bits(v.y);
-              bl[nt][0] = bits(v.z); bl[nt][1] = bits(v.w);
+              for (int nt = 0; nt < 2; ++nt) {
+                const int ct = (c0 + gn + nt * 8) >> 3;
+                uint2 v = make_uint2(0u, 0u);
+                if (ct < ctiles) v = __ldg(wf + (((size_t)t * ctiles + ct) * ksteps + ks) * 32 + lane);
+                b[nt][0] = v.x; b[nt][1] = v.y;
+              }
+              const int k0 = ks * 16 + 2 * tg, k1 = k0 + 8;
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                const int r0 = gm + mt * 16 + g, r1 = r0 + 8;
+                const uint32_t av[4] = {lds32(d_b + r0 * cop + swb(r0, k0)), lds32(d_b + r1 * cop + swb(r1, k0)),
+                                        lds32(d_b + r0 * cop + swb(r0, k1)), lds32(d_b + r1 * cop + swb(r1, k1))};
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt) mma_bf16(gacc[mt][nt], av, b[nt][0], b[nt][1]);
+              }
             }
-            const int k0 = ks * 8 + tg, k1 = k0 + 4;
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              const int r0 = gm + mt * 16 + g, r1 = r0 + 8;
-              const int o00 = r0 * cop + swz(r0, k0), o10 = r1 * cop + swz(r1, k0);
-              const int o01 = r0 * cop + swz(r0, k1), o11 = r1 * cop + swz(r1, k1);
-              const uint32_t ah[4] = {bits(d_hi[o00]), bits(d_hi[o10]), bits(d_hi[o01]), bits(d_hi[o11])};
-              const uint32_t al[4] = {bits(d_lo[o00]), bits(d_lo[o10]), bits(d_lo[o01]), bits(d_lo[o11])};
+            for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-              for (int nt = 0; nt < 2; ++nt) mma3(gacc[mt][nt], ah, al, bh[nt], bl[nt]);
+              for (int nt = 0; nt < 2; ++nt) {
+                const int r0 = gm + mt * 16 + g, r1 = r0 + 8;
+                const int cc = gn + nt * 8 + 2 * tg;
+                *reinterpret_cast<uint32_t*>(gs_b + r0 * BC + swb(r0, cc)) =
+                    pack_bf16(gacc[mt][nt][0], gacc[mt][nt][1]);
+                *reinterpret_cast<uint32_t*>(gs_b + r1 * BC + swb(r1, cc)) =
+                    pack_bf16(gacc[mt][nt][2], gacc[mt][nt][3]);
+              }
+          } else {
+            const int ksteps = Co >> 3;
+            const float4* wf = static_cast<const float4*>(a.wfrag);
+            for (int ks = 0; ks < ksteps; ++ks) {
+              uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) {
+                const int ct = (c0 + gn + nt * 8) >> 3;
+                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (ct < ctiles) v = __ldg(wf + (((size_t)t * ctiles + ct) * ksteps + ks) * 32 + lane);
+                bh[nt][0] = bits(v.x); bh[nt][1] = bits(v.y);
+                bl[nt][0] = bits(v.z); bl[nt][1] = bits(v.w);
+              }
+              const int k0 = ks * 8 + tg, k1 = k0 + 4;
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                const int r0 = gm + mt * 16 + g, r1 = r0 + 8;
+                const int o00 = r0 * cop + swz(r0, k0), o10 = r1 * cop + swz(r1, k0);
+                const int o01 = r0 * cop + swz(r0, k1), o11 = r1 * cop + swz(r1, k1);
+                const uint32_t ah[4] = {bits(d_hi[o00]), bits(d_hi[o10]), bits(d_hi[o01]), bits(d_hi[o11])};
+                const uint32_t al[4] = {bits(d_lo[o00]), bits(d_lo[o10]), bits(d_lo[o01]), bits(d_lo[o11])};
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt) mma3(gacc[mt][nt], ah, al, bh[nt], bl[nt]);
+              }
             }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) {
+                const int r0 = gm + mt * 16 + g, r1 = r0 + 8;
+                const int cc = gn + nt * 8 + 2 * tg;
+                *reinterpret_cast<float2*>(g_hi + r0 * BC + swz(r0, cc)) =
+                    make_float2(gacc[mt][nt][0], gacc[mt][nt][1]);
+                *reinterpret_cast<float2*>(g_hi + r1 * BC + swz(r1, cc)) =
+                    make_float2(gacc[mt][nt][2], gacc[mt][nt][3]);
+              }
           }
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const int r0 = gm + mt * 16 + g, r1 = r0 + 8;
-              const int cc = gn + nt * 8 + 2 * tg;
-              *reinterpret_cast<float2*>(g_hi + r0 * BC + swz(r0, cc)) =
-                  make_float2(gacc[mt][nt][0], gacc[mt][nt][1]);
-              *reinterpret_cast<float2*>(g_hi + r1 * BC + swz(r1, cc)) =
-                  make_float2(gacc[mt][nt][2], gacc[mt][nt][3]);
-            }
           __syncthreads();
         }
 
         // ---- 2. one gather, one gs patch: dX, coordinate sums, columns --------
         const int cl = tx * 4;
         const int c = c0 + cl;
+        float colv[4][4];   // bf16: this thread's 4 px x 4 c of the column tile
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int pl = ty * 4 + i;
           const int o = pl * BC + swz(pl, cl);
           float gsv[4] = {0.f, 0.f, 0.f, 0.f};
           if (GS) {
-            const float4 q = *reinterpret_cast<const float4*>(g_hi + o);
-            gsv[0] = q.x; gsv[1] = q.y; gsv[2] = q.z; gsv[3] = q.w;
+            if constexpr (BF) {
+              const uint2 q = *reinterpret_cast<const uint2*>(gs_b + pl * BC + swb(pl, cl));
+              gsv[0] = __uint_as_float(q.x << 16); gsv[1] = __uint_as_float(q.x & 0xffff0000u);
+              gsv[2] = __uint_as_float(q.y << 16); gsv[3] = __uint_as_float(q.y & 0xffff0000u);
+            } else {
+              const float4 q = *reinterpret_cast<const float4*>(g_hi + o);
+              gsv[0] = q.x; gsv[1] = q.y; gsv[2] = q.z; gsv[3] = q.w;
+            }
           }
           float col[4] = {0.f, 0.f, 0.f, 0.f};
           if (m0 + pl < M && c < C) {
@@ -363,10 +493,10 @@ dcn_v2_bwd_kernel(const BwdArgs a) {
             if (GATHER) {
               float v00[4] = {0.f, 0.f, 0.f, 0.f}, v01[4] = {0.f, 0.f, 0.f, 0.f};
               float v10[4] = {0.f, 0.f, 0.f, 0.f}, v11[4] = {0.f, 0.f, 0.f, 0.f};
-              if (pos.y & 1) load4(a.x + i00, v00);
-              if (pos.y & 2) load4(a.x + i01, v01);
-              if (pos.y & 4) load4(a.x + i10, v10);
-              if (pos.y & 8) load4(a.x + i11, v11);
+              if (pos.y & 1) load4(xg + i00, v00);
+              if (pos.y & 2) load4(xg + i01, v01);
+              if (pos.y & 4) load4(xg + i10, v10);
+              if (pos.y & 8) load4(xg + i11, v11);
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
                 const float bil = w00 * v00[j] + w01 * v01[j] + w10 * v10[j] + w11 * v11[j];
@@ -389,41 +519,80 @@ dcn_v2_bwd_kernel(const BwdArgs a) {
             }
           }
           if (DW) {
-            // In place: this thread alone reads and writes these 4 columns.
-            float4 hi, lo;
-            split4(col, hi, lo);
-            *reinterpret_cast<float4*>(g_hi + o) = hi;
-            *reinterpret_cast<float4*>(g_lo + o) = lo;
+            if constexpr (BF) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) colv[i][j] = col[j];
+            } else {
+              // In place: this thread alone reads and writes these 4 columns.
+              float4 hi, lo;
+              split4(col, hi, lo);
+              *reinterpret_cast<float4*>(g_hi + o) = hi;
+              *reinterpret_cast<float4*>(g_lo + o) = lo;
+            }
+          }
+        }
+        if constexpr (BF && DW) {
+          // Transposed: channel cl + j, pixels ty*4 .. ty*4+3 (8 bytes).
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int cr = cl + j;
+            *reinterpret_cast<uint2*>(col_b + cr * BM + swb(cr, ty * 4)) =
+                make_uint2(pack_bf16(colv[0][j], colv[1][j]), pack_bf16(colv[2][j], colv[3][j]));
           }
         }
 
         // ---- 3. dW_t^T[co][c] += sum_px dout[px][co] * col[px][c] ---------------
         if (DW) {
           __syncthreads();   // the column tile is written
-#pragma unroll 2
-          for (int ks = 0; ks < BM / 8; ++ks) {
-            const int p0 = ks * 8 + tg, p1 = p0 + 4;
-            uint32_t bh[4][2], bl[4][2];
+          if constexpr (BF) {
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const int cc = wc + nt * 8 + g;
-              const int o0 = p0 * BC + swz(p0, cc), o1 = p1 * BC + swz(p1, cc);
-              bh[nt][0] = bits(g_hi[o0]); bh[nt][1] = bits(g_hi[o1]);
-              bl[nt][0] = bits(g_lo[o0]); bl[nt][1] = bits(g_lo[o1]);
+            for (int ks = 0; ks < BM / 16; ++ks) {
+              const int p0 = ks * 16 + 2 * tg, p1 = p0 + 8;
+              uint32_t b[4][2];
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                const int cc = wc + nt * 8 + g;
+                b[nt][0] = lds32(col_b + cc * BM + swb(cc, p0));
+                b[nt][1] = lds32(col_b + cc * BM + swb(cc, p1));
+              }
+#pragma unroll
+              for (int mt = 0; mt < NCO; ++mt) {
+                const int q0 = mt * 64 + wco + g, q1 = q0 + 8;
+                const uint32_t av[4] = {
+                    pair16(d_b + p0 * cop + swb(p0, q0), d_b + (p0 + 1) * cop + swb(p0 + 1, q0)),
+                    pair16(d_b + p0 * cop + swb(p0, q1), d_b + (p0 + 1) * cop + swb(p0 + 1, q1)),
+                    pair16(d_b + p1 * cop + swb(p1, q0), d_b + (p1 + 1) * cop + swb(p1 + 1, q0)),
+                    pair16(d_b + p1 * cop + swb(p1, q1), d_b + (p1 + 1) * cop + swb(p1 + 1, q1))};
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[DW ? ch : 0][mt][nt], av, b[nt][0], b[nt][1]);
+              }
             }
+          } else {
+#pragma unroll 2
+            for (int ks = 0; ks < BM / 8; ++ks) {
+              const int p0 = ks * 8 + tg, p1 = p0 + 4;
+              uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-            for (int mt = 0; mt < NCO; ++mt) {
-              const int q0 = mt * 64 + wco + g, q1 = q0 + 8;
-              const int o00 = p0 * cop + swz(p0, q0), o10 = p0 * cop + swz(p0, q1);
-              const int o01 = p1 * cop + swz(p1, q0), o11 = p1 * cop + swz(p1, q1);
-              const uint32_t ah[4] = {bits(d_hi[o00]), bits(d_hi[o10]), bits(d_hi[o01]), bits(d_hi[o11])};
-              const uint32_t al[4] = {bits(d_lo[o00]), bits(d_lo[o10]), bits(d_lo[o01]), bits(d_lo[o11])};
+              for (int nt = 0; nt < 4; ++nt) {
+                const int cc = wc + nt * 8 + g;
+                const int o0 = p0 * BC + swz(p0, cc), o1 = p1 * BC + swz(p1, cc);
+                bh[nt][0] = bits(g_hi[o0]); bh[nt][1] = bits(g_hi[o1]);
+                bl[nt][0] = bits(g_lo[o0]); bl[nt][1] = bits(g_lo[o1]);
+              }
 #pragma unroll
-              for (int nt = 0; nt < 4; ++nt) mma3(acc[DW ? ch : 0][mt][nt], ah, al, bh[nt], bl[nt]);
+              for (int mt = 0; mt < NCO; ++mt) {
+                const int q0 = mt * 64 + wco + g, q1 = q0 + 8;
+                const int o00 = p0 * cop + swz(p0, q0), o10 = p0 * cop + swz(p0, q1);
+                const int o01 = p1 * cop + swz(p1, q0), o11 = p1 * cop + swz(p1, q1);
+                const uint32_t ah[4] = {bits(d_hi[o00]), bits(d_hi[o10]), bits(d_hi[o01]), bits(d_hi[o11])};
+                const uint32_t al[4] = {bits(d_lo[o00]), bits(d_lo[o10]), bits(d_lo[o01]), bits(d_lo[o11])};
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) mma3(acc[DW ? ch : 0][mt][nt], ah, al, bh[nt], bl[nt]);
+              }
             }
           }
         }
-        __syncthreads();   // before the next chunk writes g_hi / g_lo
+        __syncthreads();   // before the next chunk writes gs / the columns
       }
     }
 
@@ -497,6 +666,25 @@ __global__ void weight_fragments_kernel(const float* __restrict__ wmat, float4* 
   }
 }
 
+// Its bf16 twin, K steps of 16: wfrag[t][ct][ks][lane] = (W[r][k], W[r][k+1]
+// | W[r][k+8], W[r][k+9]) with r as above and k = ks*16 + 2 (lane%4); zero
+// past Co (Co % 8 == 0, so a pair is either inside or past it).
+__global__ void weight_fragments_bf16_kernel(const bf16* __restrict__ wmat, uint2* __restrict__ wfrag,
+                                             int C, int Co) {
+  const int ksteps = (Co + 15) >> 4;
+  const long long n = (long long)TAPS * (C >> 3) * ksteps * 32;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int lane = (int)(i & 31);
+    const long long f = i >> 5;
+    const int ks = (int)(f % ksteps);
+    const long long row = (f / ksteps) * 8 + (lane >> 2);
+    const int k = ks * 16 + 2 * (lane & 3);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(wmat + row * Co);
+    wfrag[i] = make_uint2(k < Co ? __ldg(w + k / 2) : 0u, k + 8 < Co ? __ldg(w + (k + 8) / 2) : 0u);
+  }
+}
+
 // out[i] = sum_{j < k} part[j * n + i], j in order: deterministic.
 struct SumJob {
   const float* part;
@@ -520,6 +708,7 @@ __global__ void sum_partials_kernel(const SumJobs jobs) {
 
 // ------------------------------------------------------------------ the plan
 enum Kind { FUSED = 0, DXK = 1, DCOORDK = 2, DWK = 3 };
+enum DType { F32 = 0, BF16 = 1 };
 
 struct Plan {
   int tiles, slabs, groups, nch, nco, smem, blocks_per_sm;
@@ -531,8 +720,8 @@ inline bool has_dw(int kind) { return kind == FUSED || kind == DWK; }
 inline bool has_dcoord(int kind) { return kind == FUSED || kind == DCOORDK; }
 
 // Mirrored by `ops/dcn_bwd.py::bwd_plan`; `chip_smoke.py` holds the two equal.
-int make_plan(int kind, int B, int H, int W, int C, int Co, int sms, Plan* p) {
-  if (kind < 0 || kind > 3 || sms <= 0) return -1;
+int make_plan(int kind, int dtype, int B, int H, int W, int C, int Co, int sms, Plan* p) {
+  if (kind < 0 || kind > 3 || sms <= 0 || (dtype != F32 && dtype != BF16)) return -1;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0) return -1;
   if ((C % 8) != 0 || (Co % 8) != 0 || Co > MAX_CO) return -1;
   const long long M = (long long)B * H * W;
@@ -544,7 +733,11 @@ int make_plan(int kind, int B, int H, int W, int C, int Co, int sms, Plan* p) {
   // (the dout tile read once per tile and tap, no coordinate partials).
   p->nch = !has_dw(kind) ? chunks : ((p->nco == 1 && chunks >= 2) ? 2 : 1);
   p->groups = (chunks + p->nch - 1) / p->nch;
+  // float32: dout tile hi + lo, gs / columns hi, columns lo (dW); bf16: the
+  // dout tile, gs (dX, coordinates), the columns (dW); then the samples.
   p->smem = 4 * (2 * BM * 64 * p->nco + (has_dw(kind) ? 2 : 1) * BM * BC) + BM * 24;
+  if (dtype == BF16)
+    p->smem = 2 * BM * (64 * p->nco + (has_gs(kind) ? BC : 0) + (has_dw(kind) ? BC : 0)) + BM * 24;
   const int by_smem = SM_SHARED / (p->smem + BLOCK_RESERVED);
   const int by_regs = !has_dw(kind) ? (p->nco == 1 ? 3 : 2) : (p->nch * p->nco > 2 ? 1 : 2);
   p->blocks_per_sm = by_smem < by_regs ? by_smem : by_regs;
@@ -561,13 +754,15 @@ int make_plan(int kind, int B, int H, int W, int C, int Co, int sms, Plan* p) {
     const long long cost = ((blocks + slots - 1) / slots) * ((p->tiles + s - 1) / s + 1);
     if (best < 0 || cost < best) { best = cost; p->slabs = s; }
   }
-  p->wfrag_floats = has_gs(kind) ? 2 * wsize : 0;
+  // The weight's fragments: float32 hi + lo, 2 x 9C x Co floats; bf16 pairs
+  // along K steps of 16, 9C x 16 ceil(Co/16) bf16.
+  p->wfrag_floats = !has_gs(kind) ? 0 : dtype == F32 ? 2 * wsize : (long long)TAPS * C * ((Co + 15) / 16) * 8;
   p->dw_floats = has_dw(kind) && p->slabs > 1 ? p->slabs * wsize : 0;
   p->coord_floats = has_dcoord(kind) && p->groups > 1 ? p->groups * M * 3 * TAPS : 0;
   return 0;
 }
 
-template <bool DX, bool DCOORD, bool DW, int NCH, int NCO>
+template <typename T, bool DX, bool DCOORD, bool DW, int NCH, int NCO>
 int launch_main(const Plan& p, const BwdArgs& a, cudaStream_t s) {
   // Above 48 KB of dynamic shared memory a kernel must be allowed it (per
   // device; raised when a launch needs more than was allowed).
@@ -576,36 +771,46 @@ int launch_main(const Plan& p, const BwdArgs& a, cudaStream_t s) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || allowed[dev] < p.smem) {
-    err = cudaFuncSetAttribute(dcn_v2_bwd_kernel<DX, DCOORD, DW, NCH, NCO>,
+    err = cudaFuncSetAttribute(dcn_v2_bwd_kernel<T, DX, DCOORD, DW, NCH, NCO>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) allowed[dev] = p.smem;
   }
   const dim3 grid((unsigned)p.slabs, TAPS, (unsigned)p.groups);
-  dcn_v2_bwd_kernel<DX, DCOORD, DW, NCH, NCO><<<grid, dim3(NT), p.smem, s>>>(a);
+  dcn_v2_bwd_kernel<T, DX, DCOORD, DW, NCH, NCO><<<grid, dim3(NT), p.smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool DX, bool DCOORD, bool DW>
+template <typename T, bool DX, bool DCOORD, bool DW>
 int dispatch(const Plan& p, const BwdArgs& a, cudaStream_t s) {
   if (!DW) {
-    if (p.nco == 1) return launch_main<DX, DCOORD, DW, 1, 1>(p, a, s);
-    if (p.nco == 2) return launch_main<DX, DCOORD, DW, 1, 2>(p, a, s);
-    return launch_main<DX, DCOORD, DW, 1, 4>(p, a, s);
+    if (p.nco == 1) return launch_main<T, DX, DCOORD, DW, 1, 1>(p, a, s);
+    if (p.nco == 2) return launch_main<T, DX, DCOORD, DW, 1, 2>(p, a, s);
+    return launch_main<T, DX, DCOORD, DW, 1, 4>(p, a, s);
   }
-  if (p.nch == 2 && p.nco == 1) return launch_main<DX, DCOORD, DW, 2, 1>(p, a, s);
-  if (p.nch == 1 && p.nco == 1) return launch_main<DX, DCOORD, DW, 1, 1>(p, a, s);
-  if (p.nch == 1 && p.nco == 2) return launch_main<DX, DCOORD, DW, 1, 2>(p, a, s);
-  if (p.nch == 1 && p.nco == 4) return launch_main<DX, DCOORD, DW, 1, 4>(p, a, s);
+  if (p.nch == 2 && p.nco == 1) return launch_main<T, DX, DCOORD, DW, 2, 1>(p, a, s);
+  if (p.nch == 1 && p.nco == 1) return launch_main<T, DX, DCOORD, DW, 1, 1>(p, a, s);
+  if (p.nch == 1 && p.nco == 2) return launch_main<T, DX, DCOORD, DW, 1, 2>(p, a, s);
+  if (p.nch == 1 && p.nco == 4) return launch_main<T, DX, DCOORD, DW, 1, 4>(p, a, s);
   return -1;
 }
 
-int launch(int kind, const void* x, const void* offset, const void* mask, const void* weight,
-           const void* dout, void* dx, void* doffset, void* dmask, void* dw, void* scratch,
-           long long scratch_floats, int B, int H, int W, int C, int Co,
+template <typename T>
+int dispatch_kind(int kind, const Plan& p, const BwdArgs& a, cudaStream_t s) {
+  switch (kind) {
+    case FUSED: return dispatch<T, true, true, true>(p, a, s);
+    case DXK: return dispatch<T, true, false, false>(p, a, s);
+    case DCOORDK: return dispatch<T, false, true, false>(p, a, s);
+    default: return dispatch<T, false, false, true>(p, a, s);
+  }
+}
+
+int launch(int kind, int dtype, const void* x, const void* offset, const void* mask,
+           const void* weight, const void* dout, void* dx, void* doffset, void* dmask, void* dw,
+           void* scratch, long long scratch_floats, int B, int H, int W, int C, int Co,
            long long off_stride, long long mask_stride, int sms, void* stream) {
   Plan p;
-  if (make_plan(kind, B, H, W, C, Co, sms, &p) != 0) return -1;
+  if (make_plan(kind, dtype, B, H, W, C, Co, sms, &p) != 0) return -1;
   const bool DX = kind == FUSED || kind == DXK;
   const bool DC = has_dcoord(kind), DWW = has_dw(kind);
   if (!offset || !mask || !dout) return -1;
@@ -618,25 +823,29 @@ int launch(int kind, const void* x, const void* offset, const void* mask, const 
   const long long M = (long long)B * H * W;
 
   float* sp = static_cast<float*>(scratch);
-  float4* wfrag = reinterpret_cast<float4*>(sp);
   float* dw_part = sp + p.wfrag_floats;
   float* off_part = dw_part + p.dw_floats;
   float* mask_part = off_part + (p.coord_floats ? p.groups * M * 2 * TAPS : 0);
 
   if (p.wfrag_floats) {
-    const long long n = p.wfrag_floats / 4;
+    const long long n = dtype == F32 ? p.wfrag_floats / 4 : p.wfrag_floats / 2;   // fragments
     const int blocks = (int)((n + 255) / 256 < 4LL * sms ? (n + 255) / 256 : 4LL * sms);
-    weight_fragments_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(weight), wfrag, C, Co);
+    if (dtype == F32)
+      weight_fragments_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(weight),
+                                                     reinterpret_cast<float4*>(sp), C, Co);
+    else
+      weight_fragments_bf16_kernel<<<blocks, 256, 0, s>>>(static_cast<const bf16*>(weight),
+                                                          reinterpret_cast<uint2*>(sp), C, Co);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
 
   BwdArgs a;
-  a.x = static_cast<const float*>(x);
-  a.offset = static_cast<const float*>(offset);
-  a.mask = static_cast<const float*>(mask);
-  a.wfrag = wfrag;
-  a.dout = static_cast<const float*>(dout);
+  a.x = x;
+  a.offset = offset;
+  a.mask = mask;
+  a.wfrag = sp;
+  a.dout = dout;
   a.dx = static_cast<float*>(dx);
   a.doffset = p.coord_floats ? off_part : static_cast<float*>(doffset);
   a.dmask = p.coord_floats ? mask_part : static_cast<float*>(dmask);
@@ -649,13 +858,7 @@ int launch(int kind, const void* x, const void* offset, const void* mask, const 
   a.nch = p.nch;
   a.cop = 64 * p.nco;
   a.cop_log2 = p.nco == 1 ? 6 : (p.nco == 2 ? 7 : 8);
-  int err = 0;
-  switch (kind) {
-    case FUSED: err = dispatch<true, true, true>(p, a, s); break;
-    case DXK: err = dispatch<true, false, false>(p, a, s); break;
-    case DCOORDK: err = dispatch<false, true, false>(p, a, s); break;
-    default: err = dispatch<false, false, true>(p, a, s); break;
-  }
+  const int err = dtype == F32 ? dispatch_kind<float>(kind, p, a, s) : dispatch_kind<bf16>(kind, p, a, s);
   if (err != 0) return err;
 
   SumJobs jobs;
@@ -683,12 +886,12 @@ int launch(int kind, const void* x, const void* offset, const void* mask, const 
 // plan[0..10] = pixels per tile, tiles, slabs, grid x, y, z, channel chunks
 // per block, 64-wide Co tiles of the dW accumulator, dynamic shared memory in
 // bytes, blocks per SM assumed, scratch floats. kind: 0 fused, 1 dX, 2
-// coordinates, 3 dW. `sms`: the card's multiprocessor count. Returns -1 for
-// an argument the kernels do not take.
-extern "C" int dcn_v2_bwd_plan(int kind, int B, int H, int W, int C, int Co, int sms,
+// coordinates, 3 dW. dtype: 0 float32, 1 bf16 operands. `sms`: the card's
+// multiprocessor count. Returns -1 for an argument the kernels do not take.
+extern "C" int dcn_v2_bwd_plan(int kind, int dtype, int B, int H, int W, int C, int Co, int sms,
                                long long* plan) {
   Plan p;
-  if (make_plan(kind, B, H, W, C, Co, sms, &p) != 0) return -1;
+  if (make_plan(kind, dtype, B, H, W, C, Co, sms, &p) != 0) return -1;
   const long long v[11] = {BM, p.tiles, p.slabs, p.slabs, TAPS, p.groups, p.nch, p.nco,
                            p.smem, p.blocks_per_sm, p.wfrag_floats + p.dw_floats + p.coord_floats};
   for (int i = 0; i < 11; ++i) plan[i] = v[i];
@@ -704,13 +907,19 @@ extern "C" int dcn_v2_bwd_plan(int kind, int B, int H, int W, int C, int Co, int
   x, offset, mask, weight, dout, dx, doffset, dmask, dw, scratch, scratch_floats, \
       B, H, W, C, Co, off_stride, mask_stride, sms, stream
 
-// All four take the same arguments; a pointer the kernel does not use may be
+// All eight take the same arguments; a pointer the kernel does not use may be
 // null (dx: x, doffset, dmask, dw; dcoord: dx, dw; dw: weight, dx, doffset,
-// dmask). Each launches, on `stream`, the weight's fragment copy (dX and
-// coordinate terms), the main kernel and, where the plan has partials, their
-// sum; it allocates nothing and does not synchronise. Returns
-// cudaGetLastError() (0 = ok), or -1 for an argument it does not take.
-extern "C" int dcn_v2_bwd_fused_launch(DCN_BWD_ARGS) { return launch(0, DCN_BWD_PASS); }
-extern "C" int dcn_v2_bwd_dx_launch(DCN_BWD_ARGS) { return launch(1, DCN_BWD_PASS); }
-extern "C" int dcn_v2_bwd_dcoord_launch(DCN_BWD_ARGS) { return launch(2, DCN_BWD_PASS); }
-extern "C" int dcn_v2_bwd_dw_launch(DCN_BWD_ARGS) { return launch(3, DCN_BWD_PASS); }
+// dmask). x, offset, mask, weight and dout are float32 (`*_launch`) or bf16
+// (`*_bf16_launch`); dx, doffset, dmask and dw are float32 in both. Each
+// launches, on `stream`, the weight's fragment copy (dX and coordinate
+// terms), the main kernel and, where the plan has partials, their sum; it
+// allocates nothing and does not synchronise. Returns cudaGetLastError()
+// (0 = ok), or -1 for an argument it does not take.
+extern "C" int dcn_v2_bwd_fused_launch(DCN_BWD_ARGS) { return launch(0, F32, DCN_BWD_PASS); }
+extern "C" int dcn_v2_bwd_dx_launch(DCN_BWD_ARGS) { return launch(1, F32, DCN_BWD_PASS); }
+extern "C" int dcn_v2_bwd_dcoord_launch(DCN_BWD_ARGS) { return launch(2, F32, DCN_BWD_PASS); }
+extern "C" int dcn_v2_bwd_dw_launch(DCN_BWD_ARGS) { return launch(3, F32, DCN_BWD_PASS); }
+extern "C" int dcn_v2_bwd_fused_bf16_launch(DCN_BWD_ARGS) { return launch(0, BF16, DCN_BWD_PASS); }
+extern "C" int dcn_v2_bwd_dx_bf16_launch(DCN_BWD_ARGS) { return launch(1, BF16, DCN_BWD_PASS); }
+extern "C" int dcn_v2_bwd_dcoord_bf16_launch(DCN_BWD_ARGS) { return launch(2, BF16, DCN_BWD_PASS); }
+extern "C" int dcn_v2_bwd_dw_bf16_launch(DCN_BWD_ARGS) { return launch(3, BF16, DCN_BWD_PASS); }

@@ -1,1 +1,1 @@
-"""Training data: ground-truth target rendering (host-side numpy)."""
+"""Training data: the synthetic generator, the dataset and its loader, target rendering, video readers (host-side numpy)."""

@@ -8,8 +8,8 @@ cv2.getAffineTransform (exact solve from 3 point pairs) and cv2.warpAffine; here
 bilinear sampler (numpy on the host for preprocessing; the on-device counterpart
 is centerpose_tpu_torch/ops/resample.py).
 
-This is the PyTorch package's own copy of the parts of
-`centerpose_tpu/geometry/affine.py` that its detector uses.
+This is the PyTorch package's own copy of `centerpose_tpu/geometry/affine.py`
+(what its detector and its training dataset use).
 """
 
 from __future__ import annotations
@@ -83,6 +83,12 @@ def get_affine_transform(
     return _solve_affine(src, dst)
 
 
+def affine_transform(pt: ArrayLike, t: np.ndarray) -> np.ndarray:
+    """Apply a 2x3 affine to one (x, y) point."""
+    pt = np.asarray(pt, dtype=np.float64)
+    return (t[:, :2] @ pt[:2] + t[:, 2]).astype(np.float64)[:2]
+
+
 def affine_transform_points(pts: np.ndarray, t: np.ndarray) -> np.ndarray:
     """Apply a 2x3 affine to an (N, 2) array of points."""
     pts = np.asarray(pts, dtype=np.float64)
@@ -151,3 +157,43 @@ def warp_affine(
     bot = v10 * (1 - fx) + v11 * fx
     out = top * (1 - fy) + bot * fy
     return out.astype(img.dtype if np.issubdtype(img.dtype, np.floating) else np.float64)
+
+
+def warp_affine_u8(
+    img: np.ndarray, t: np.ndarray, output_size: Sequence[int]
+) -> np.ndarray:
+    """Fast bilinear warp of a uint8 image via PIL's C resampler (~10x the
+    numpy path; profiles at 2.4 ms vs 23 ms for 480 -> 256 on this host).
+
+    PIL's AFFINE transform works in pixel-CORNER coordinates: output integer
+    index (x, y) denotes corner coordinate (x+0.5, y+0.5), is mapped through
+    the matrix, and the result is sampled at integer-index (p - 0.5). To match
+    cv2/`warp_affine` center-of-pixel semantics the matrix must be conjugated
+    by the half-pixel shift: A = inv; A[:2,2] += 0.5 - A[:2,:2] @ [0.5, 0.5].
+    (Identity/translation are exact WITHOUT the conjugation because the
+    correction vanishes when the linear part is I — do not "verify" the
+    convention with those cases alone; a 2x scale exposes it.) Remaining
+    deviations from cv2.warpAffine, both confined to <=1 uint8 step or border
+    pixels: the fixed-point resampler truncates instead of rounding, and
+    samples whose bilinear support crosses the source boundary are filled
+    with 0 instead of partially blended. Used for the training dataset's
+    image augmentation only (reference dataset_combined.py warps uint8 with
+    cv2 there too); geometry/target paths keep the float-exact `warp_affine`.
+    """
+    from PIL import Image
+
+    if img.dtype != np.uint8:
+        return warp_affine(img, t, output_size)
+    out_w, out_h = int(output_size[0]), int(output_size[1])
+    t_full = np.vstack([t, [0.0, 0.0, 1.0]])
+    inv = np.linalg.inv(t_full)
+    a = inv[:2, :2]
+    b = inv[:2, 2] + 0.5 - a @ np.array([0.5, 0.5])
+    im = Image.fromarray(np.ascontiguousarray(img))
+    out = im.transform(
+        (out_w, out_h),
+        Image.AFFINE,
+        (a[0, 0], a[0, 1], b[0], a[1, 0], a[1, 1], b[1]),
+        resample=Image.BILINEAR,
+    )
+    return np.asarray(out)

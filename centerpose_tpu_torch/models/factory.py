@@ -62,11 +62,17 @@ def create_model(
     config: CenterPoseConfig,
     device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
+    param_dtype: Optional[str] = None,
 ) -> nn.Module:
-    """Build the network of `config.arch` in eval mode on `device`, in
-    `config.compute_dtype`, channels_last. Weights are random, drawn from
-    `generator` (seed 0 when None). Asked for "cuda" on a host without a GPU
-    this raises; it never moves to the CPU by itself."""
+    """Build the network of `config.arch` in eval mode on `device`,
+    channels_last, its parameters and buffers in `param_dtype`: by default
+    `config.compute_dtype` (serving: the whole network in that type).
+    Training passes "float32" (`config.param_dtype`): float32 parameters,
+    BatchNorm statistics and optimizer state, and a train step that computes
+    in `config.compute_dtype` (`training/trainer.py`, mixed precision, as the
+    JAX package's flax modules cast float32 parameters at use). Weights are
+    random, drawn from `generator` (seed 0 when None). Asked for "cuda" on a
+    host without a GPU this raises; it never moves to the CPU by itself."""
     arch = config.arch
     name = arch.split("_")[0] if "_" in arch else arch
     if name not in ("dla", "dlav1"):
@@ -81,6 +87,7 @@ def create_model(
     with torch.random.fork_rng(devices=[]):       # leave the global state alone
         model = CenterPoseNet(config)
     reset_parameters(model, generator)
-    model = model.to(device=torch.device(device), dtype=_DTYPES[config.compute_dtype])
+    dtype = _DTYPES[param_dtype or config.compute_dtype]
+    model = model.to(device=torch.device(device), dtype=dtype)
     model = model.to(memory_format=torch.channels_last)
     return model.eval()

@@ -159,27 +159,36 @@ class DCN(nn.Module):
         nn.init.zeros_(self.conv_offset_mask.bias)
         self._hwio = None                                # (key, tensor), see _weight_hwio
 
-    def _weight_hwio(self):
-        """`weight` as the HWIO operand in the kernel's memory layout, copied
-        once and kept until the parameter is written to, moved or cast. Where
-        a gradient is being recorded it is a view of the parameter instead."""
+    def _weight_hwio(self, dtype: torch.dtype):
+        """`weight` in `dtype` as the HWIO operand in the kernel's memory
+        layout, copied once and kept until the parameter is written to, moved
+        or cast. Where a gradient is being recorded it is a view of the
+        parameter (cast to `dtype` if need be) instead."""
         w = self.weight
         if torch.is_grad_enabled() and w.requires_grad:
-            return w.permute(2, 3, 1, 0)
-        key = (w.data_ptr(), w._version, w.dtype, w.device)
+            return w.to(dtype).permute(2, 3, 1, 0)
+        key = (w.data_ptr(), w._version, w.dtype, w.device, dtype)
         if self._hwio is None or self._hwio[0] != key:
-            self._hwio = (key, kernel_weight(w.detach()))
+            self._hwio = (key, kernel_weight(w.detach().to(dtype)))
         return self._hwio[1]
 
     def operands(self, x):
         """The five NHWC operands of the deformable convolution for the
-        NCHW-shaped input `x`: (x, offset, mask, weight HWIO, bias)."""
-        x = x.contiguous(memory_format=torch.channels_last)
+        NCHW-shaped input `x`: (x, offset, mask, weight HWIO, bias), all in
+        one type. Under `torch.autocast` (the mixed-precision train step)
+        that is the autocast type, as for the convolutions around the block:
+        autocast does not reach the deformable convolution's own function,
+        so the operands are cast here; the float32 parameters receive their
+        gradients through the casts. Otherwise it is the parameters' type."""
+        dev = x.device.type
+        dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else self.weight.dtype
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         om = self.conv_offset_mask(x).contiguous(memory_format=torch.channels_last)
         om = om.permute(0, 2, 3, 1)                      # NHWC view, contiguous
         offset = om[..., :18]
         mask = torch.sigmoid(om[..., 18:])
-        return x.permute(0, 2, 3, 1), offset, mask, self._weight_hwio(), self.bias
+        return (x.permute(0, 2, 3, 1), offset, mask, self._weight_hwio(dtype),
+                self.bias.to(dtype))
 
     def forward(self, x):
         out = dcn_v2_forward(*self.operands(x))          # [B, H, W, Co]

@@ -28,8 +28,9 @@ of `ops/dcn_bwd.py` (`csrc/dcn_v2_bwd.cu`). Under `torch.no_grad()` the kernel
 is launched directly and nothing is saved.
 
 `dcn_v2_forward.launches` counts kernel launches, so that a run can show it
-went through the kernel. It is incremented where the kernel is launched and
-nowhere else.
+went through the kernel, and `dcn_v2_forward.launches_bf16` those of the
+bf16 body. Both are incremented where the kernel is launched and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -258,6 +259,8 @@ def _launch_forward(x, offset, mask, weight, bias, lib=None) -> torch.Tensor:
         )
     if mine:
         dcn_v2_forward.launches += 1
+        if x.dtype == torch.bfloat16:
+            dcn_v2_forward.launches_bf16 += 1
     return out
 
 
@@ -291,7 +294,7 @@ class DCNv2Function(torch.autograd.Function):
             if need_w:
                 dweight = dcn_bwd.dcn_v2_bwd_dw(x, offset, mask, weight, dout)
         if need_b:
-            dbias = dout.sum(dim=(0, 1, 2))
+            dbias = dout.to(torch.float32).sum(dim=(0, 1, 2)).to(dout.dtype)
         return (
             dx,
             doffset if need_off else None,
@@ -325,8 +328,10 @@ def dcn_v2_forward(
     kernel of that type reads ([9C, Co] for float32, [Co, 9C] for bfloat16),
     and for float32 the scratch of `f32_plan`; the kernel allocates nothing
     and runs on the current stream without synchronising. Where a gradient
-    is recorded the result carries a graph
-    whose backward is the backward kernels (float32 only).
+    is recorded the result carries a graph whose backward is the backward
+    kernels, which take both types: bfloat16 operands (the mixed-precision
+    train step's) give bf16 products summed in float32, and every gradient
+    in the type of its operand.
     """
     tensors = (x, offset, mask, weight, bias)
     devices = {t.device for t in tensors}
@@ -342,3 +347,4 @@ def dcn_v2_forward(
 
 
 dcn_v2_forward.launches = 0
+dcn_v2_forward.launches_bf16 = 0

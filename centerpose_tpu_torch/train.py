@@ -1,0 +1,241 @@
+"""Training entry point of the PyTorch package (CenterPose, the image model).
+
+    python -m centerpose_tpu_torch.train --data_dir DATA --compute_dtype bfloat16
+
+The twin of the JAX package's `train.py` (parity target:
+src/main_CenterPose.py:25-191): seed, model + Adam, optional resume or
+partial init, the epoch loop with periodic validation, best / last /
+periodic checkpoints, LR ÷10 at the `--lr_step` epochs (a function of the
+update count, `training/trainer.py::make_lr_schedule`). DATA is a tree of
+DOPE-style png+json frames (`data/synthetic.py`, or
+`scripts/make_synthetic_dataset.py`).
+
+Flags keep the JAX CLI's names and defaults. Added: `--device` (default
+cuda; asked for cuda on a host without one, it raises). Refused, each with
+the ROADMAP.md item it waits for: `--tracking_task` (queue A item 5),
+`--debug > 0` (item 7), `--num_devices > 1` (item 8). Dropped: `--dcn_bwd`
+and `--dcn_impl`, the JAX package's TPU knobs: this package has one DCN
+forward kernel and one backward kernel template, chosen by the tensors'
+device and type.
+
+`--compute_dtype bfloat16` trains in mixed precision: float32 parameters,
+BatchNorm statistics and Adam state, the forward in bf16 under autocast
+(the DCN kernels with bf16 operands), the loss in float32.
+
+Experiment directory `exp/<arch>/<exp_id>/` (relative to the working
+directory, as the JAX CLI's): `opt.txt`, `log.txt`, `scalars.jsonl`, `tb/`,
+and checkpoints (`utils/checkpoint.py`) under `ckpt/<step>/` (every epoch),
+`best/<step>/` (lowest validation loss) and `epoch_<N>/<step>/` (every
+`--save_intervals` epochs). `main(argv)` returns a summary (the final step,
+the per-epoch mean losses, ms per step and the share of it spent waiting
+for the loader) for callers that run it in process.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from centerpose_tpu_torch.config import preset
+from centerpose_tpu_torch.data.dataset import ObjectPoseDataset
+from centerpose_tpu_torch.data.loader import DataLoader
+from centerpose_tpu_torch.models.factory import create_model
+from centerpose_tpu_torch.training.trainer import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from centerpose_tpu_torch.utils.checkpoint import load_checkpoint, load_partial, save_checkpoint
+from centerpose_tpu_torch.utils.logger import Logger
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="centerpose_tpu_torch training")
+    p.add_argument("--data_dir", required=True, help="root of png+json training data")
+    p.add_argument("--val_dir", default="", help="validation data root")
+    p.add_argument("--exp_id", default="default")
+    p.add_argument("--c", dest="category", default="shoe")
+    p.add_argument("--arch", default="dlav1_34")
+    p.add_argument("--tracking_task", action="store_true",
+                   help="CenterPoseTrack training: not ported (ROADMAP.md queue A item 5)")
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1.25e-4)
+    p.add_argument("--num_epochs", type=int, default=0, help="0 = preset default")
+    p.add_argument("--lr_step", default="",
+                   help="comma-separated epochs for the LR ÷10 drops; empty = preset default (90,120)")
+    p.add_argument("--val_intervals", type=int, default=5)
+    p.add_argument("--save_intervals", type=int, default=10)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--load_model", default="",
+                   help="initialize from this checkpoint directory by name + shape "
+                        "(utils/checkpoint.py::load_partial); the optimizer and step start fresh")
+    p.add_argument("--seed", type=int, default=317)
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="0 = all; one GPU only (more: ROADMAP.md queue A item 8)")
+    p.add_argument("--input_res", type=int, default=512)
+    p.add_argument("--num_workers", type=int, default=2,
+                   help="parallel loader workers; 0 = synchronous")
+    p.add_argument("--loader_mode", choices=("thread", "process"), default="thread",
+                   help="worker kind: threads or spawn processes")
+    p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="bfloat16: mixed precision (float32 parameters, optimizer and loss)")
+    p.add_argument("--debug", type=int, default=0,
+                   help="debug canvases: not ported (ROADMAP.md queue A item 7), only 0")
+    p.add_argument("--mug", action="store_true",
+                   help="cup category: train the non-symmetric mug sub-model")
+    p.add_argument("--use_residual", action="store_true",
+                   help="scale head predicts log-residuals against the category's dimension_ref")
+    p.add_argument("--use_absolute_scale", action="store_true",
+                   help="with --use_residual: absolute [w,h,d] reference")
+    p.add_argument("--wire", choices=("compact", "f32"), default="compact",
+                   help="loader->device format: compact ships uint8 images and heatmaps, "
+                        "decoded on the device; f32 ships the normalized tensors")
+    p.add_argument("--new_data_augmentation", action="store_true",
+                   help="motion blur / downscale / gaussian noise before the affine warp")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    args = p.parse_args(argv)
+    if args.tracking_task:
+        p.error("--tracking_task: training the tracking model is not ported to "
+                "centerpose_tpu_torch (ROADMAP.md queue A item 5)")
+    if args.debug > 0:
+        p.error("--debug > 0 (debug canvases) is not ported to centerpose_tpu_torch "
+                "(ROADMAP.md queue A item 7)")
+    if args.num_devices > 1:
+        p.error("--num_devices > 1: multi-GPU training is not ported to centerpose_tpu_torch "
+                "(ROADMAP.md queue A item 8)")
+    return args
+
+
+def _fetch(stats) -> dict:
+    """Every stat of one step as floats, with one copy to the host."""
+    keys = list(stats)
+    values = torch.stack([stats[k].detach().float() for k in keys]).tolist()
+    return dict(zip(keys, values))
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    np.random.seed(args.seed)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device here (pass --device cpu to train on the CPU)")
+    cfg = preset(
+        "centerpose",
+        category=args.category,
+        arch=args.arch,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        input_h=args.input_res,
+        input_w=args.input_res,
+        seed=args.seed,
+        compute_dtype=args.compute_dtype,
+        mug=args.mug,
+        use_residual=args.use_residual,
+        use_absolute_scale=args.use_absolute_scale,
+    )
+    if args.num_epochs:
+        cfg = cfg.replace(num_epochs=args.num_epochs)
+    if args.lr_step:
+        cfg = cfg.replace(lr_step=tuple(int(e) for e in args.lr_step.split(",") if e))
+
+    exp_dir = os.path.join("exp", cfg.arch, args.exp_id)
+    logger = Logger(exp_dir, cfg)
+    try:
+        return _train(args, cfg, device, exp_dir, logger)
+    finally:
+        logger.close()
+
+
+def _train(args, cfg, device, exp_dir, logger) -> dict:
+    compact = args.wire == "compact"
+    train_ds = ObjectPoseDataset(args.data_dir, cfg, split="train",
+                                 new_data_aug=args.new_data_augmentation, compact_wire=compact)
+    val_ds = ObjectPoseDataset(args.val_dir or args.data_dir, cfg, split="val", compact_wire=compact)
+    steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
+    logger.write(f"train {len(train_ds)} samples, {steps_per_epoch} steps/epoch")
+
+    model = create_model(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed),
+                         param_dtype=cfg.param_dtype)
+    state, tx = create_train_state(cfg, model, steps_per_epoch)
+    start_epoch = 0
+    ckpt_dir = os.path.join(exp_dir, "ckpt")
+    if args.load_model and not args.resume:
+        n_ok, n_skip = load_partial(args.load_model, model)
+        logger.write(f"partial-init from {args.load_model}: {n_ok} tensors loaded, "
+                     f"{n_skip} kept at init")
+    if args.resume:
+        state, step = load_checkpoint(ckpt_dir, state)
+        start_epoch = step // steps_per_epoch
+        logger.write(f"resumed from step {step} (epoch {start_epoch})")
+
+    step_fn = make_train_step(cfg, model, tx)
+    eval_fn = make_eval_step(cfg, model)
+    # Parallel prefetching loader (DataLoader(num_workers) parity,
+    # main_CenterPose.py:70-78): host augmentation overlaps the device step.
+    train_loader = DataLoader(train_ds, cfg.batch_size, shuffle=True, num_workers=args.num_workers,
+                              seed=args.seed, mode=args.loader_mode, drop_last=True)
+    val_loader = DataLoader(val_ds, cfg.batch_size, shuffle=False, num_workers=args.num_workers,
+                            seed=args.seed, mode=args.loader_mode, drop_last=False)
+    metadata = {"config": dataclasses.asdict(cfg)}
+
+    best = float("inf")
+    epochs, step_ms, wait_ms = [], [], []
+    for epoch in range(start_epoch + 1, cfg.num_epochs + 1):
+        t0 = time.time()
+        agg = {}
+        n_steps = 0
+        train_loader.set_epoch(epoch)
+        batches = iter(train_loader)
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            t_step = time.perf_counter()
+            if batch is None:
+                break
+            state, stats = step_fn(state, batch)
+            stats = _fetch(stats)               # one fetch, which waits for the step
+            wait_ms.append((t_step - t_wait) * 1e3)
+            step_ms.append((time.perf_counter() - t_wait) * 1e3)
+            n_steps += 1
+            for k, v in stats.items():
+                agg[k] = agg.get(k, 0.0) + v
+        agg = {k: v / max(n_steps, 1) for k, v in agg.items()}
+        logger.scalars(epoch, agg, prefix="train_")
+        logger.write(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items())
+                     + f" ({time.time() - t0:.1f}s)")
+        record = {"epoch": epoch, "steps": n_steps, "train": agg}
+
+        if args.val_intervals > 0 and epoch % args.val_intervals == 0:
+            vagg, vn = {}, 0
+            for batch in val_loader:
+                stats = _fetch(eval_fn(state, batch))
+                vn += 1
+                for k, v in stats.items():
+                    vagg[k] = vagg.get(k, 0.0) + v
+            vagg = {k: v / max(vn, 1) for k, v in vagg.items()}
+            logger.scalars(epoch, vagg, prefix="val_")
+            logger.write(f"val {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in vagg.items()))
+            record["val"] = vagg
+            if vagg.get("loss", float("inf")) < best:
+                best = vagg["loss"]
+                save_checkpoint(os.path.join(exp_dir, "best"), state, state.step, metadata)
+
+        save_checkpoint(ckpt_dir, state, state.step, metadata)
+        if args.save_intervals > 0 and epoch % args.save_intervals == 0:
+            save_checkpoint(os.path.join(exp_dir, f"epoch_{epoch}"), state, state.step, metadata)
+        epochs.append(record)
+
+    logger.write("training done")
+    total = sum(step_ms)
+    return {"exp_dir": exp_dir, "step": state.step, "epochs": epochs, "ms_per_step": step_ms,
+            "loader_wait_ms": wait_ms, "loader_wait_share": sum(wait_ms) / total if total else 0.0}
+
+
+if __name__ == "__main__":
+    main()

@@ -17,6 +17,19 @@ place and hands back the same `TrainState`; the device is the model's. On a
 CUDA model every `DeformConvBlock` runs the forward kernel and, in the
 backward pass, the fused backward kernel (`ops/dcn_fwd.py::DCNv2Function`).
 
+Mixed precision (`compute_dtype="bfloat16"`, `train.py --compute_dtype
+bfloat16`), with the JAX package's semantics: parameters, BatchNorm running
+statistics and Adam's moments stay float32 (build the model with
+`create_model(cfg, param_dtype="float32")`); the forward runs under
+`torch.autocast(..., torch.bfloat16)`, so the convolutions compute in bf16,
+the deformable convolutions too (their operands are cast to bf16 in
+`models/layers.py::DCN`, and both their kernels then take bf16); the heads
+reach the loss as float32 (`training/losses.py`); gradients reach the float32
+parameters through the casts, as float32. The float32 step runs without
+autocast, as before. Autocast's op lists are not flax's: under autocast on
+the GPU GroupNorm returns float32 where flax's bf16 GroupNorm returns bf16;
+the ReLU and the bf16 convolution after it see the same values either way.
+
 Library difference kept: `nn.BatchNorm2d` updates `running_var` with the
 unbiased batch variance (n/(n-1)), flax with the biased one; the normalisation
 inside a step is the same.
@@ -24,6 +37,7 @@ inside a step is the same.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Iterable, List, Tuple
 
@@ -78,7 +92,8 @@ class ClippedAdam:
     decay) at the scheduled rate: base_trainer.py:94-97. The clip scales by
     `max_norm / max(norm, max_norm)`, the JAX package's form
     (`torch.nn.utils.clip_grad_norm_` divides by `norm + 1e-6`). Holds the
-    moments and the update count; `step()` reads every parameter's `.grad`."""
+    moments and the update count; `step()` reads every parameter's `.grad`
+    and keeps the global norm it clipped by in `norm`."""
 
     def __init__(self, params: Iterable[nn.Parameter], lr_at: Callable[[int], float],
                  max_norm: float):
@@ -86,6 +101,7 @@ class ClippedAdam:
         self.lr_at = lr_at
         self.max_norm = float(max_norm)
         self.count = 0
+        self.norm = None
         self.adam = torch.optim.Adam(
             self.params, lr=lr_at(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0
         )
@@ -104,6 +120,7 @@ class ClippedAdam:
             group["lr"] = self.lr_at(self.count)
         self.adam.step()
         self.count += 1
+        self.norm = norm
         return norm
 
 
@@ -127,8 +144,16 @@ def create_train_state(cfg: CenterPoseConfig, model: nn.Module,
     """State and optimizer for `model` (from `models/factory.py::create_model`,
     which draws the weights from its generator and places them on its
     device). The optimizer holds the parameters that require grad at this
-    point: freeze what a fine-tuning run leaves alone before the call."""
+    point: freeze what a fine-tuning run leaves alone before the call. They
+    must be float32, for a bf16 `compute_dtype` too (mixed precision: the
+    step casts at use, Adam updates float32)."""
     trainable = [p for p in model.parameters() if p.requires_grad]
+    kinds = {p.dtype for p in trainable}
+    if kinds != {torch.float32}:
+        raise ValueError(
+            f"create_train_state: parameters of type {sorted(map(str, kinds))}; training "
+            "keeps float32 parameters (create_model(cfg, param_dtype='float32'))"
+        )
     tx = make_optimizer(cfg, trainable, steps_per_epoch)
     return TrainState(step=0, model=model, tx=tx), tx
 
@@ -161,6 +186,16 @@ def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _compute(cfg: CenterPoseConfig, device: torch.device):
+    """The context the network's forward runs in: autocast to bf16 for a
+    bf16 `compute_dtype` (mixed precision), nothing for float32."""
+    if cfg.compute_dtype == "float32":
+        return contextlib.nullcontext()
+    if cfg.compute_dtype != "bfloat16":
+        raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}")
+    return torch.autocast(device.type, dtype=torch.bfloat16)
+
+
 def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam):
     """`step(state, batch) -> (state, stats)`: forward in train mode (batch
     statistics, running statistics updated), loss, backward, clip, Adam.
@@ -172,11 +207,13 @@ def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam):
     loss_cfg = loss_config_from(cfg)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        batch = _to_device(batch, _device_of(model))
+        device = _device_of(model)
+        batch = _to_device(batch, device)
         model.train()
         for p in tx.params:
             p.grad = None
-        outputs = model(batch["input"])
+        with _compute(cfg, device):
+            outputs = model(batch["input"])
         loss, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "train")
         loss.backward()
         for p in tx.params:
@@ -201,9 +238,10 @@ def make_eval_step(cfg: CenterPoseConfig, model: nn.Module):
     loss_cfg = loss_config_from(cfg)
 
     def eval_fn(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        batch = _to_device(batch, _device_of(model))
+        device = _device_of(model)
+        batch = _to_device(batch, device)
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), _compute(cfg, device):
             outputs = model(batch["input"])
             _, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "val")
         return stats

@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-drives `centerpose_tpu_torch`'s serving path and its training path at the full
-width of the flagship model (dlav1_34 at 512x512, random weights from seed 0),
-and its video-tracking path with the CenterPoseTrack model (dla_34 at 512x512,
-one frame per call), through the entry points a user calls, builds the CUDA
+drives `centerpose_tpu_torch`'s serving path and its training paths (float32,
+bf16 mixed precision, and the training CLI on the package's own synthetic
+data) at the full width of the flagship model (dlav1_34 at 512x512, random
+weights from seed 0), and its video-tracking path with the CenterPoseTrack
+model (dla_34 at 512x512, one frame per call), through the entry points a
+user calls, builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and shows that every path really went through
 them. Every phase prints one JSON line; a phase
@@ -68,6 +70,18 @@ Phases:
            `dcn_v2_bwd.cu`, that build's four kernels are held against the
            plain version and timed in turns with this checkout's (other,
            this, this, other) at every shape.
+  kernels_bwd_bf16
+           The same four kernels on bf16 operands (their bf16 body, what the
+           mixed-precision train step runs) against `dcn_v2_grads_plain` on
+           the same bf16 values (float32 products and sums): the 7 shapes x 4
+           offset kinds at B=2, one case at B=8, the tails; per term within
+           TOL_BWD_BF16 (2e-2 of the term's largest magnitude + 1e-3: the
+           kernels also round gs and the modulated samples to bf16 as the TPU
+           kernels do, 2^-9 each, and return bf16 terms); the worst error
+           relative to each term's largest magnitude is printed. Plans equal
+           to `bwd_plan(dtype=bf16)`, dW / d_offset / d_mask the same bits in
+           two calls, device times per call at B=8 with bounds at the bf16
+           rate (989 TFLOP/s) and 3.35 TB/s.
   model    the bf16 network + decode on a [8, 512, 512, 3] batch as the JAX
            package's bench.py runs it: the kernel launches of one forward
            counted by shape (16 in all), output
@@ -116,6 +130,27 @@ Phases:
            in which the atomics land is amplified: float32 holds that
            gradient to about a percent between two libraries, and between these
            two routes, which share every other kernel, to about 1e-4).
+           One more step under `torch.profiler`: device time by kernel family.
+  train_bf16
+           The mixed-precision step (`compute_dtype="bfloat16"`: float32
+           parameters, BatchNorm statistics and Adam, the forward under
+           autocast, the DCN kernels on bf16 operands) at 512x512, batch 8:
+           one float32 and one bf16 step from the same weights on the same
+           batch, global gradient norms within 5 %; then a warm-up and 3
+           timed bf16 steps and the two fine-tuning steps, the counters set
+           to 0 just before and read just after: 16 bf16 forward and 16 bf16
+           fused backward launches per full step, the bf16 dX, coordinate and
+           dW bodies in the fine-tuning steps, no float32 launch, finite
+           losses, float32 gradients. ms per step, images/s and peak memory
+           beside the float32 step's, and a profiled step.
+  train_cli
+           `python -m centerpose_tpu_torch.train` in process: the package's
+           generator writes two videos of 8 frames of 640x480 into a
+           temporary directory; one epoch (2 steps) at 512x512, bf16, batch
+           8, 2 loader workers, with validation and checkpoints, then
+           `--resume` for one more. The step 2 -> 4, finite losses,
+           checkpoints, bf16 launches per step and per validation batch; ms
+           per step and the share spent waiting for the loader.
 
 Bounds: float32 operations are counted at the rate of float32-accurate
 products on the tensor cores (3xTF32: a third of 495 TFLOP/s), bf16 at 989
@@ -133,7 +168,8 @@ parent commit's, unpacked into a git-ignored directory:
 `--clock` adds to the kernels_bwd phase, per production shape, the cycles a
 block of the fused backward kernel spends per 64-pixel tile in each of its
 phases (clock64() at its barriers, thread 0 of every block), for this
-checkout's source and each compared one that has a plan.
+checkout's source and each compared one that has a plan, for its float32
+body and, where the build has one, its bf16 body.
 """
 
 from __future__ import annotations
@@ -250,6 +286,12 @@ TRAIN_STEPS = 3
 # Per term of the gradient: |err| <= TOL_BWD_REL * max|plain| + TOL_BWD_ABS.
 TOL_BWD_REL = 1e-4
 TOL_BWD_ABS = 1e-5
+# The same on bf16 operands, against the plain version on the same bf16
+# values summed in float32: the kernels also round gs and the modulated
+# samples to bf16 (2^-9 of each, as the TPU kernels do), and the output to
+# bf16 (2^-9 of the term); a few 2^-8 of the term's largest magnitude, plus
+# an absolute floor for terms that cancel to near 0.
+TOL_BWD_BF16 = {"rel": 2e-2, "abs": 1e-3}
 GRAD_NAMES = ("dx", "doffset", "dmask", "dweight", "dbias")
 BWD_SOURCE = "centerpose_tpu_torch/csrc/dcn_v2_bwd.cu"
 # name -> (wrapper, the TPU kernel it replaces, products it runs, terms it yields)
@@ -316,9 +358,9 @@ def phase_env() -> str:
 
 
 def reset_launches() -> None:
-    dcn_v2_forward.launches = 0
+    dcn_v2_forward.launches = dcn_v2_forward.launches_bf16 = 0
     for fn, *_ in BWD_KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
 
 
 # ------------------------------------------------------------------- build
@@ -654,47 +696,52 @@ def phase_kernels():
 
 
 # -------------------------------------------------------- backward kernels
-def make_dout(seed, b, hw, co):
+def make_dout(seed, b, hw, co, dtype=torch.float32):
     h, w = (hw, hw) if isinstance(hw, int) else hw
     rng = np.random.RandomState(seed + 1000)
-    return torch.from_numpy(rng.randn(b, h, w, co).astype(np.float32)).to(DEVICE)
+    return torch.from_numpy(rng.randn(b, h, w, co).astype(np.float32)).to(DEVICE, dtype)
 
 
-def bwd_bound_ms(b, hw, c, co, products, terms):
-    """Least time the card could take for one backward kernel, float32:
-    max(2 * B*HW * 9C * Co operations per product / the float32-accurate
-    (3xTF32) peak, bytes / memory rate) with each input read once (offset,
-    mask, dout; x unless the kernel is the dX one; W unless it is the dW one)
-    and each output written once."""
+def bwd_bound_ms(b, hw, c, co, products, terms, dtype=torch.float32):
+    """Least time the card could take for one backward kernel: max(2 * B*HW
+    * 9C * Co operations per product / the peak of the operands' type (for
+    float32 the float32-accurate 3xTF32 one), bytes / memory rate) with each
+    input read once (offset, mask, dout; x unless the kernel is the dX one;
+    W unless it is the dW one) and each output written once, all in the
+    operands' type (the kernels return each term in its primal type)."""
     m = b * hw * hw
     flops = products * 2.0 * m * 9 * c * co
     elems = m * (18 + 9 + co)                                        # offset, mask, dout
     elems += m * c if terms != (0,) else 0                           # x
     elems += 9 * c * co if terms != (3,) else 0                      # W
     elems += sum(n for i, n in enumerate((m * c, m * 18, m * 9, 9 * c * co)) if i in terms)
-    t_ops = flops / PEAK_FLOPS[torch.float32]
-    t_bytes = 4 * elems / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = torch.empty((), dtype=dtype).element_size() * elems / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_grads(args, dout, what):
+def check_grads(args, dout, what, rel=TOL_BWD_REL, abs_=TOL_BWD_ABS):
     """Every term of the fused and of the split route against the plain
-    version; returns the worst |err| per kernel name."""
+    version, |err| <= rel * max|plain| + abs_ per term; returns the worst
+    |err| and the worst |err| / max|plain| per kernel name."""
     ref = dcn_bwd.dcn_v2_grads_plain(*args, dout)
     worst = {name: 0.0 for name in BWD_KERNELS}
+    worst_rel = {name: 0.0 for name in BWD_KERNELS}
     for fused in (True, False):
         got = dcn_bwd.dcn_v2_grads(*args, dout, fused=fused)
         torch.cuda.synchronize()
         for i, (name, g, r) in enumerate(zip(GRAD_NAMES, got, ref)):
             require(g.shape == r.shape and g.dtype == r.dtype, f"{what}: {name} has the wrong shape or type")
             require(torch.isfinite(g).all(), f"{what}: {name} not finite")
-            err = (g - r).abs().max().item()
-            limit = TOL_BWD_REL * r.abs().max().item() + TOL_BWD_ABS
+            err = (g.float() - r.float()).abs().max().item()
+            scale = r.float().abs().max().item()
+            limit = rel * scale + abs_
             require(err <= limit, f"{what} fused={fused}: {name} off by {err}, limit {limit}")
             for kname, (_, _, _, terms) in BWD_KERNELS.items():
                 if i in terms and (kname == "dcn_v2_bwd_fused") == fused:
                     worst[kname] = max(worst[kname], err)
-    return worst
+                    worst_rel[kname] = max(worst_rel[kname], err / max(scale, 1e-30))
+    return worst, worst_rel
 
 
 def as_terms(name, out):
@@ -708,17 +755,17 @@ def as_terms(name, out):
     return tuple(full)
 
 
-def bwd_plans(b, hw, c, co):
+def bwd_plans(b, hw, c, co, dtype=torch.float32):
     """The four backward kernels' plans at one call: `ops/dcn_bwd.py::bwd_plan`
     must state what the built source chooses."""
     h, w = (hw, hw) if isinstance(hw, int) else hw
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {}
     for kind in dcn_bwd._KERNELS:
-        mine = dcn_bwd.bwd_plan(kind, b, h, w, c, co, sms)
-        built = dcn_bwd.kernel_bwd_plan(kind, b, h, w, c, co, sms)
+        mine = dcn_bwd.bwd_plan(kind, b, h, w, c, co, sms, dtype)
+        built = dcn_bwd.kernel_bwd_plan(kind, b, h, w, c, co, sms, dtype=dtype)
         require({k: mine[k] for k in built} == built,
-                f"dcn_v2_bwd_{kind} at {(b, h, w, c, co)}: built plan {built} != bwd_plan {mine}")
+                f"dcn_v2_bwd_{kind} {dtype} at {(b, h, w, c, co)}: built plan {built} != bwd_plan {mine}")
         plans[kind] = {"grid": [mine["grid_x"], mine["grid_y"], mine["grid_z"]],
                        "tiles": mine["tiles"], "chunks_per_block": mine["chunks_per_block"],
                        "co_tiles": mine["co_tiles"], "smem_bytes": mine["smem_bytes"],
@@ -851,7 +898,8 @@ def clock_source(src: str) -> str:
 def phase_clocks():
     """Cycles per tile per block in each phase of the fused kernel, for this
     checkout's backward source and each compared one, at every production
-    shape at B=8 (one queued run of 10 calls each)."""
+    shape at B=8 (one queued run of 10 calls each), for each body a build
+    has (float32; bf16 as `<shape>_bf16`)."""
     import ctypes
 
     def read(path):
@@ -875,9 +923,10 @@ def phase_clocks():
         lib = ctypes.CDLL(str(out))
         counts = (ctypes.c_ulonglong * 8)()
         rows[label] = {}
-        for hw, c, co in PRODUCTION_SHAPES:
-            args = make_case(30, TRAIN_BATCH, hw, c, co, torch.float32, "uniform")
-            dout = make_dout(30, TRAIN_BATCH, hw, co)
+        dtypes = [torch.float32] + ([torch.bfloat16] if hasattr(lib, "dcn_v2_bwd_fused_bf16_launch") else [])
+        for (hw, c, co), dtype in ((shape, dt) for shape in PRODUCTION_SHAPES for dt in dtypes):
+            args = make_case(30, TRAIN_BATCH, hw, c, co, dtype, "uniform")
+            dout = make_dout(30, TRAIN_BATCH, hw, co, dtype)
             run = lambda: dcn_bwd._launch("fused", args[0], args[1], args[2], args[3], dout, lib=lib)  # noqa: E731
             run()
             torch.cuda.synchronize()
@@ -885,7 +934,8 @@ def phase_clocks():
             ms = time_ms(run, iters=10, warmup=0, queued=True)
             require(lib.prof_read(counts) == 0, "clock read failed")
             tiles = max(int(counts[5]), 1)
-            rows[label][f"{hw}x{c}x{co}"] = {
+            key = f"{hw}x{c}x{co}" + ("_bf16" if dtype == torch.bfloat16 else "")
+            rows[label][key] = {
                 "ms": ms, "cycles_per_tile": dict(zip(CLOCK_PHASES, (counts[i] / tiles for i in range(5))))}
             del args, dout
     torch.cuda.empty_cache()
@@ -908,7 +958,7 @@ def phase_kernels_bwd():
         for seed, b, kind in cases:
             args = make_case(seed, b, hw, c, co, torch.float32, kind)
             dout = make_dout(seed, b, hw, co)
-            got = check_grads(args, dout, f"shape {(b, hw, hw, c, co)} {kind}")
+            got, _ = check_grads(args, dout, f"shape {(b, hw, hw, c, co)} {kind}")
             worst = {k: max(worst[k], got[k]) for k in worst}
             n_cases += 1
         # `args`, `dout` are now the last case, at the training batch: bits
@@ -937,7 +987,7 @@ def phase_kernels_bwd():
         for seed, b, kind in ((40, 1, "uniform"), (41, 2, "uniform"), (42, 1, "off_image"), (43, 2, "integer")):
             args = make_case(seed, b, TAIL_HW, c, co, torch.float32, kind)
             dout = make_dout(seed, b, TAIL_HW, co)
-            got = check_grads(args, dout, f"tail {(b, *TAIL_HW, c, co)} {kind}")
+            got, _ = check_grads(args, dout, f"tail {(b, *TAIL_HW, c, co)} {kind}")
             worst = {k: max(worst[k], got[k]) for k in worst}
             n_cases += 1
         tails.append({"shape": [2, *TAIL_HW, c, co], "max_abs_err": worst,
@@ -948,6 +998,65 @@ def phase_kernels_bwd():
     emit({"phase": "kernels_bwd", "cases": n_cases, "dtype": "float32", "clock_cycles_per_tile": clocks,
           "tolerance": {"rel_to_term_max": TOL_BWD_REL, "abs": TOL_BWD_ABS},
           "plain": "dcn_v2_grads_plain (all five terms; the yardstick of every kernel)",
+          "library": None, "plans": plans, "bits_identical": same_bits, "tails": tails,
+          "per_shape": per_shape})
+    return per_shape
+
+
+def phase_kernels_bwd_bf16():
+    """The four backward kernels on bf16 operands (the mixed-precision train
+    step's) against the plain version on the same bf16 values: the 7
+    production shapes x 4 offset kinds at B=2, one case at B=8 and the
+    tails, TOL_BWD_BF16 per term; plans equal to `bwd_plan(dtype=bf16)`;
+    dW, d_offset and d_mask the same bits in two calls; device times per call
+    at B=8 against the bound at the bf16 rate."""
+    dt = torch.bfloat16
+    cases = [(50 + s, 2, k) for s, k in enumerate(("uniform", "integer", "off_image", "dy20"))]
+    cases.append((60, TRAIN_BATCH, "uniform"))
+    per_shape = {name: [] for name in BWD_KERNELS}
+    plans, same_bits, n_cases = {}, {}, 0
+    worst_rel_all = {name: 0.0 for name in BWD_KERNELS}
+    for hw, c, co in PRODUCTION_SHAPES:
+        key = f"{TRAIN_BATCH}x{hw}x{hw}x{c}x{co}"
+        plans[key] = bwd_plans(TRAIN_BATCH, hw, c, co, dt)
+        worst = {name: 0.0 for name in BWD_KERNELS}
+        for seed, b, kind in cases:
+            args = make_case(seed, b, hw, c, co, dt, kind)
+            dout = make_dout(seed, b, hw, co, dt)
+            got, rel = check_grads(args, dout, f"bf16 shape {(b, hw, hw, c, co)} {kind}", **{
+                "rel": TOL_BWD_BF16["rel"], "abs_": TOL_BWD_BF16["abs"]})
+            worst = {k: max(worst[k], got[k]) for k in worst}
+            worst_rel_all = {k: max(worst_rel_all[k], rel[k]) for k in worst_rel_all}
+            n_cases += 1
+        same_bits[key] = bits_identical(args, dout)
+        plain_ms = time_ms(lambda: dcn_bwd.dcn_v2_grads_plain(*args, dout), iters=2, warmup=1)
+        for name, (fn, _, products, terms) in BWD_KERNELS.items():
+            ms = time_ms(lambda: fn(*args[:4], dout), iters=10, queued=True)
+            bound, bound_by = bwd_bound_ms(TRAIN_BATCH, hw, c, co, products, terms, dt)
+            per_shape[name].append({
+                "shape": [TRAIN_BATCH, hw, hw, c, co], "max_abs_err": worst[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                "plan": plans[key][name[len("dcn_v2_bwd_"):]], "bits_identical": same_bits[key][name]})
+        del args, dout
+    tails = []
+    for c, co in BWD_TAIL_SHAPES:
+        worst = {name: 0.0 for name in BWD_KERNELS}
+        for seed, b, kind in ((70, 1, "uniform"), (71, 2, "uniform"), (72, 1, "off_image"), (73, 2, "integer")):
+            args = make_case(seed, b, TAIL_HW, c, co, dt, kind)
+            dout = make_dout(seed, b, TAIL_HW, co, dt)
+            got, rel = check_grads(args, dout, f"bf16 tail {(b, *TAIL_HW, c, co)} {kind}", **{
+                "rel": TOL_BWD_BF16["rel"], "abs_": TOL_BWD_BF16["abs"]})
+            worst = {k: max(worst[k], got[k]) for k in worst}
+            worst_rel_all = {k: max(worst_rel_all[k], rel[k]) for k in worst_rel_all}
+            n_cases += 1
+        tails.append({"shape": [2, *TAIL_HW, c, co], "max_abs_err": worst,
+                      "plans": bwd_plans(2, TAIL_HW, c, co, dt) if co <= dcn_bwd.BWD_MAX_CO else None})
+    torch.cuda.empty_cache()
+    reset_launches()
+    emit({"phase": "kernels_bwd_bf16", "cases": n_cases, "dtype": "bfloat16",
+          "tolerance": {"rel_to_term_max": TOL_BWD_BF16["rel"], "abs": TOL_BWD_BF16["abs"]},
+          "worst_err_rel_to_term_max": worst_rel_all,
+          "plain": "dcn_v2_grads_plain on the bf16 operands (float32 products and sums)",
           "library": None, "plans": plans, "bits_identical": same_bits, "tails": tails,
           "per_shape": per_shape})
     return per_shape
@@ -1382,7 +1491,9 @@ def synthetic_batch(cfg, batch_size: int, seed: int):
 
 
 def train_model(cfg):
-    model = create_model(cfg, DEVICE, generator=torch.Generator().manual_seed(0))
+    """The network to train: float32 parameters whatever `cfg.compute_dtype`
+    (a bf16 config trains in mixed precision), from seed 0."""
+    model = create_model(cfg, DEVICE, generator=torch.Generator().manual_seed(0), param_dtype="float32")
     randomize_offset_convs(model, seed=0)
     return model
 
@@ -1405,12 +1516,98 @@ def timed_step(step, state, batch):
     return (time.perf_counter() - t0) * 1e3, loss
 
 
+# Kernel families of a profiled step, by the first pattern a kernel's name
+# contains (lower case); what matches none is "other".
+KERNEL_KINDS = (
+    ("dcn backward", ("dcn_v2_bwd", "weight_fragments", "sum_partials")),
+    ("dcn forward", ("dcn_v2_fwd",)),
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+    ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass", "dgrad", "wgrad", "sm90_")),
+    ("optimizer", ("multi_tensor", "foreach")),
+    ("reduction", ("reduce",)),
+    ("copy / cast", ("copy", "memcpy", "memset", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "pointwise")),
+)
+
+
+def profiled_step(step, state, batch):
+    """One more step under `torch.profiler`: the device time of its kernels
+    by family (KERNEL_KINDS) and the 20 longest kernels, against the step's
+    host-clock time (busy share = kernel time / step time). "not measured"
+    if the profiler records no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms, _ = timed_step(step, state, batch)
+    by_name = Counter()
+    for e in prof.events():
+        # Kernels and copies on the device; not the device-side spans of
+        # annotations such as `Optimizer.step`, which cover kernels counted.
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        return {"step_ms": ms, "device_ms": "not measured"}
+    by_kind = Counter()
+    for name, t in by_name.items():
+        low = name.lower()
+        by_kind[next((k for k, pats in KERNEL_KINDS if any(p in low for p in pats)), "other")] += t
+    device_ms = sum(by_name.values())
+    return {"step_ms": ms, "device_ms": device_ms, "device_busy_share": device_ms / ms,
+            "by_kind_ms": dict(by_kind.most_common()),
+            "top_kernels_ms": [[n[:120], t] for n, t in by_name.most_common(20)]}
+
+
 def flat_grads(model):
     return {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
 
 
 def l2(tensors) -> float:
     return float(torch.sqrt(sum((t.double() ** 2).sum() for t in tensors)))
+
+
+def finetune_steps(cfg, model, batch, fwd_launches: Counter, count: str):
+    """Two fine-tuning steps through the train step's entry points: (a) the
+    DCN weights frozen, so that `DCNv2Function.backward` runs the dX and the
+    coordinate kernel; (b) nothing but the DCN weights and biases trained, so
+    that the blocks that read the frozen trunk run the dW kernel alone. The
+    backward kernels' launches are read from the counters' attribute `count`
+    ("launches", or "launches_bf16" for the bf16 body) and required to be
+    those; the forward's are added to `fwd_launches` by shape."""
+    finetune = {}
+    dcns = [m for m in model.modules() if isinstance(m, layers.DCN)]
+    for name, trainable in (
+        ("dcn_weights_frozen", lambda p, own: not own),
+        ("only_dcn_weights", lambda p, own: own),
+    ):
+        own = {id(m.weight) for m in dcns} | {id(m.bias) for m in dcns}
+        for p in model.parameters():
+            p.requires_grad_(trainable(p, id(p) in own))
+        before = {k: getattr(fn, count) for k, (fn, *_rest) in BWD_KERNELS.items()}
+        frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not p.requires_grad}
+        state_ft, tx_ft = create_train_state(cfg, model, steps_per_epoch=1000)
+        fwd_ft = Counter()
+        hooks = count_dcn_shapes(model, fwd_ft)
+        ms, loss = timed_step(make_train_step(cfg, model, tx_ft), state_ft, batch)
+        for h in hooks:
+            h.remove()
+        require(np.isfinite(loss), f"fine-tuning step {name}: loss {loss}")
+        params = dict(model.named_parameters())
+        require(all(torch.equal(params[k], v) for k, v in frozen.items()),
+                f"fine-tuning step {name}: a frozen parameter changed")
+        del frozen
+        delta = {k: getattr(fn, count) - before[k] for k, (fn, *_rest) in BWD_KERNELS.items()}
+        finetune[name] = {"ms": ms, "loss": loss, "backward_launches": delta}
+        fwd_launches.update(fwd_ft)
+    ft = finetune["dcn_weights_frozen"]["backward_launches"]
+    require(ft == {"dcn_v2_bwd_fused": 0, "dcn_v2_bwd_dx": 16, "dcn_v2_bwd_dcoord": 16, "dcn_v2_bwd_dw": 0},
+            f"DCN weights frozen: backward launches {ft}")
+    ft = finetune["only_dcn_weights"]["backward_launches"]
+    require(ft["dcn_v2_bwd_dw"] > 0 and ft["dcn_v2_bwd_dw"] + ft["dcn_v2_bwd_fused"] == 16
+            and ft["dcn_v2_bwd_dx"] == 0 and ft["dcn_v2_bwd_dcoord"] == 0,
+            f"only DCN weights trained: backward launches {ft}")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return finetune
 
 
 def phase_train(per_forward, fwd_entries, bwd_per_shape):
@@ -1482,43 +1679,13 @@ def phase_train(per_forward, fwd_entries, bwd_per_shape):
     # so that `DCNv2Function.backward` runs the dX and the coordinate kernel;
     # (b) nothing but the DCN weights and biases trained, so that the blocks
     # that read the frozen trunk run the dW kernel alone.
-    finetune = {}
-    dcns = [m for m in model.modules() if isinstance(m, layers.DCN)]
-    for name, trainable in (
-        ("dcn_weights_frozen", lambda p, own: not own),
-        ("only_dcn_weights", lambda p, own: own),
-    ):
-        own = {id(m.weight) for m in dcns} | {id(m.bias) for m in dcns}
-        for p in model.parameters():
-            p.requires_grad_(trainable(p, id(p) in own))
-        before = {k: fn.launches for k, (fn, *_rest) in BWD_KERNELS.items()}
-        frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not p.requires_grad}
-        state_ft, tx_ft = create_train_state(cfg, model, steps_per_epoch=1000)
-        fwd_ft = Counter()
-        hooks = count_dcn_shapes(model, fwd_ft)
-        ms, loss = timed_step(make_train_step(cfg, model, tx_ft), state_ft, batch)
-        for h in hooks:
-            h.remove()
-        require(np.isfinite(loss), f"fine-tuning step {name}: loss {loss}")
-        params = dict(model.named_parameters())
-        require(all(torch.equal(params[k], v) for k, v in frozen.items()),
-                f"fine-tuning step {name}: a frozen parameter changed")
-        del frozen
-        delta = {k: fn.launches - before[k] for k, (fn, *_rest) in BWD_KERNELS.items()}
-        finetune[name] = {"ms": ms, "loss": loss, "backward_launches": delta}
-        fwd_launches.update(fwd_ft)
-    ft = finetune["dcn_weights_frozen"]["backward_launches"]
-    require(ft == {"dcn_v2_bwd_fused": 0, "dcn_v2_bwd_dx": 16, "dcn_v2_bwd_dcoord": 16, "dcn_v2_bwd_dw": 0},
-            f"DCN weights frozen: backward launches {ft}")
-    ft = finetune["only_dcn_weights"]["backward_launches"]
-    require(ft["dcn_v2_bwd_dw"] > 0 and ft["dcn_v2_bwd_dw"] + ft["dcn_v2_bwd_fused"] == 16
-            and ft["dcn_v2_bwd_dx"] == 0 and ft["dcn_v2_bwd_dcoord"] == 0,
-            f"only DCN weights trained: backward launches {ft}")
+    finetune = finetune_steps(cfg, model, batch, fwd_launches, "launches")
     counts = {"dcn_v2_fwd": dcn_v2_forward.launches,
               **{k: fn.launches for k, (fn, *_rest) in BWD_KERNELS.items()}}   # ---- the main path ends
     require(counts["dcn_v2_fwd"] == 16 * (steps + 2), f"{counts['dcn_v2_fwd']} forward launches on the training path")
+    profile_f32 = profiled_step(step, state, batch)     # after the counts are read; TF32 off
     peak_memory = torch.cuda.max_memory_allocated()
-    del model, state, tx, step, batch, grads, state_ft, tx_ft, params
+    del model, state, tx, step, batch, grads
     torch.cuda.empty_cache()
 
     # Share of a full step inside its 16 + 16 DCN launches, from this run's
@@ -1583,7 +1750,7 @@ def phase_train(per_forward, fwd_entries, bwd_per_shape):
         "dcn_forward_ms_per_step": dcn_fwd_ms, "dcn_backward_ms_per_step": dcn_bwd_ms,
         "dcn_share_of_step": (dcn_fwd_ms + dcn_bwd_ms) / step_ms,
         "peak_memory_mb": peak_memory / 2 ** 20, "peak_memory_full_step_mb": full_step_memory / 2 ** 20,
-        "finetune": finetune,
+        "finetune": finetune, "profiled_step": profile_f32,
         "kernels_vs_plain_128": {
             "running_statistics": {"loss": [loss_k, loss_p], "worst_grad_err_rel_to_param_max": worst_rel,
                                    "limit": 1e-3},
@@ -1593,11 +1760,157 @@ def phase_train(per_forward, fwd_entries, bwd_per_shape):
     return fwd_launches, counts
 
 
-def backward_entries(bwd_per_shape, per_forward, counts):
-    """One entry per backward kernel: error the worst over the 7 shapes,
-    times and bound summed over the 16 calls of one train step (each shape
-    times the number of blocks of that shape), launches from the train phase."""
+def phase_train_bf16(per_forward):
+    """The mixed-precision train step (`compute_dtype="bfloat16"`: float32
+    parameters, the forward under autocast, the DCN kernels on bf16
+    operands) at 512x512, batch 8, beside the float32 step of the train
+    phase: one float32 step and one bf16 step from the same weights on the
+    same batch (their global gradient norms within 5 %), then the bf16 main
+    path: a warm-up and TRAIN_STEPS timed steps and the two fine-tuning
+    steps, with every launch counter set to 0 just before and read just
+    after. Required: finite losses, float32 gradients, 16 bf16 forward and 16
+    bf16 fused backward launches per full step (none on float32 operands),
+    the bf16 dX, coordinate and dW bodies launched by the fine-tuning steps."""
+    torch.cuda.empty_cache()
+    cfg = preset("centerpose", input_h=INPUT, input_w=INPUT, batch_size=TRAIN_BATCH,
+                 compute_dtype="bfloat16")
+    batch = synthetic_batch(cfg, TRAIN_BATCH, seed=2)
+
+    norms = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dtype)
+        model = train_model(c)
+        state, tx = create_train_state(c, model, steps_per_epoch=1000)
+        _, loss = timed_step(make_train_step(c, model, tx), state, batch)
+        require(np.isfinite(loss), f"{dtype} step: loss {loss}")
+        norms[dtype] = tx.norm.item()
+        del model, state, tx
+        torch.cuda.empty_cache()
+    norm_rel = abs(norms["bfloat16"] - norms["float32"]) / norms["float32"]
+    require(norm_rel <= 0.05, f"bf16 step: gradient norm {norms['bfloat16']} against float32 {norms['float32']}")
+
+    # ---- the bf16 main path -------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    model = train_model(cfg)
+    state, tx = create_train_state(cfg, model, steps_per_epoch=1000)
+    step = make_train_step(cfg, model, tx)
+    fwd_shapes = Counter()
+    hooks = count_dcn_shapes(model, fwd_shapes)
+    first = timed_step(step, state, batch)
+    timed = [timed_step(step, state, batch) for _ in range(TRAIN_STEPS)]
+    for h in hooks:
+        h.remove()
+    steps = 1 + TRAIN_STEPS
+    losses = [loss for _, loss in [first] + timed]
+    grads = flat_grads(model)
+    require(all(np.isfinite(losses)), f"bf16 losses not finite: {losses}")
+    require(all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads.values()),
+            "a bf16 step's gradient is not a finite float32 tensor")
+    require(all(p.dtype == torch.float32 for p in model.parameters()), "a parameter left float32")
+    fused = dcn_bwd.dcn_v2_bwd_fused
+    require(dcn_v2_forward.launches_bf16 == 16 * steps == dcn_v2_forward.launches,
+            f"{dcn_v2_forward.launches_bf16} bf16 forward launches ({dcn_v2_forward.launches} in all) "
+            f"in {steps} bf16 steps")
+    require(fused.launches_bf16 == 16 * steps == fused.launches,
+            f"{fused.launches_bf16} bf16 fused backward launches ({fused.launches} in all) in {steps} bf16 steps")
+    for shape, n in per_forward.items():
+        require(fwd_shapes[shape] == steps * n, f"bf16 step, shape {shape}: {fwd_shapes[shape]} passes")
+    full_step_memory = torch.cuda.max_memory_allocated()
+    step_ms = sorted(ms for ms, _ in timed)[len(timed) // 2]
+    finetune = finetune_steps(cfg, model, batch, Counter(), "launches_bf16")
+    counts = {"dcn_v2_fwd": dcn_v2_forward.launches_bf16,
+              **{k: fn.launches_bf16 for k, (fn, *_rest) in BWD_KERNELS.items()}}   # ---- the main path ends
+    require(all(fn.launches == fn.launches_bf16 for fn, *_rest in BWD_KERNELS.values()),
+            "a float32 backward launch on the bf16 path")
+    profile = profiled_step(step, state, batch)
+    del model, state, tx, step, batch, grads
+    torch.cuda.empty_cache()
+    f32 = next(p for p in PHASES if p["phase"] == "train")
+    emit({
+        "phase": "train_bf16", "arch": cfg.arch, "input": [TRAIN_BATCH, INPUT, INPUT, 3],
+        "dtype": "bfloat16 compute, float32 parameters / BatchNorm statistics / Adam / loss",
+        "steps": steps, "losses": losses, "ms_per_step_each": [ms for ms, _ in timed],
+        "first_step_ms": first[0], "ms_per_step": step_ms, "images_per_s": TRAIN_BATCH / (step_ms * 1e-3),
+        "peak_memory_full_step_mb": full_step_memory / 2 ** 20,
+        "float32_step": {"ms_per_step": f32["ms_per_step"], "images_per_s": f32["images_per_s"],
+                         "peak_memory_full_step_mb": f32["peak_memory_full_step_mb"]},
+        "grad_norm": norms, "grad_norm_rel_diff": norm_rel, "grad_norm_limit": 0.05,
+        "launches": counts, "launches_per_step": {"dcn_v2_fwd_bf16": 16, "dcn_v2_bwd_fused_bf16": 16},
+        "finetune": finetune, "profiled_step": profile,
+    })
+    return counts
+
+
+def phase_train_cli():
+    """`python -m centerpose_tpu_torch.train` in process, on the card: the
+    package's synthetic generator writes two videos of 8 frames of 640x480
+    into a temporary directory, then `train.main` runs at 512x512, bf16,
+    batch 8, 2 loader workers: one epoch (2 steps) with validation and
+    checkpoints, then `--resume` for one more. Required: the step 2 -> 4,
+    finite losses, checkpoints under ckpt/ and best/, bf16 kernels launched
+    (16 forward per step and per validation batch, 16 fused backward per
+    step). Prints ms per step and the share of it spent waiting for the
+    loader."""
+    import tempfile
+
+    from centerpose_tpu_torch import train as train_cli
+    from centerpose_tpu_torch.data.synthetic import generate_dataset
+    from centerpose_tpu_torch.utils.checkpoint import latest_step
+
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.time()
+        data = os.path.join(tmp, "data")
+        frames = generate_dataset(data, n_videos=2, frames_per_video=8, seed=0, width=640, height=480)
+        gen_s = time.time() - t0
+        argv = ["--data_dir", data, "--input_res", str(INPUT), "--compute_dtype", "bfloat16",
+                "--batch_size", str(TRAIN_BATCH), "--num_workers", "2", "--val_intervals", "1",
+                "--exp_id", "chip_smoke"]
+        os.chdir(tmp)
+        try:
+            reset_launches()
+            t0 = time.time()
+            first = train_cli.main(argv + ["--num_epochs", "1"])
+            second = train_cli.main(argv + ["--num_epochs", "2", "--resume"])
+            run_s = time.time() - t0
+            counts = {"dcn_v2_fwd": dcn_v2_forward.launches_bf16,
+                      "dcn_v2_bwd_fused": dcn_bwd.dcn_v2_bwd_fused.launches_bf16}   # ---- the path ends
+            exp = os.path.join(tmp, first["exp_dir"])
+            ckpts = {d: latest_step(os.path.join(exp, d)) for d in ("ckpt", "best")}
+        finally:
+            os.chdir(cwd)
+    n_val = len(frames) // TRAIN_BATCH
+    require(first["step"] == 2 and second["step"] == 4,
+            f"train CLI: step {first['step']} after one epoch, {second['step']} after the resumed one")
+    require(ckpts["ckpt"] == 4 and ckpts["best"] in (2, 4), f"train CLI checkpoints: {ckpts}")
+    losses = [e["train"]["loss"] for e in first["epochs"] + second["epochs"]]
+    losses += [e["val"]["loss"] for e in first["epochs"] + second["epochs"]]
+    require(all(np.isfinite(losses)), f"train CLI losses not finite: {losses}")
+    require(counts["dcn_v2_bwd_fused"] == 16 * 4, f"train CLI: {counts} bf16 launches in 4 steps")
+    require(counts["dcn_v2_fwd"] == 16 * (4 + 2 * n_val),
+            f"train CLI: {counts} bf16 launches in 4 steps and {2 * n_val} validation batches")
+    step_ms = first["ms_per_step"] + second["ms_per_step"]
+    wait_ms = first["loader_wait_ms"] + second["loader_wait_ms"]
+    emit({
+        "phase": "train_cli", "command": "python -m centerpose_tpu_torch.train " + " ".join(argv),
+        "data": {"frames": len(frames), "size": [640, 480], "videos": 2, "generate_s": gen_s},
+        "steps": [first["step"], second["step"]], "checkpoints": ckpts,
+        "epochs": first["epochs"] + second["epochs"], "seconds": run_s,
+        "ms_per_step_each": step_ms, "ms_per_step_median": sorted(step_ms)[len(step_ms) // 2],
+        "loader_wait_ms_each": wait_ms, "loader_wait_share": sum(wait_ms) / sum(step_ms),
+        "launches_bf16": counts,
+    })
+
+
+def backward_entries(bwd_per_shape, per_forward, counts, dtype="float32"):
+    """One entry per backward kernel (a bf16 body's named with `_bf16`):
+    error the worst over the 7 shapes, times and bound summed over the 16
+    calls of one train step (each shape times the number of blocks of that
+    shape), launches from the train phase of that type."""
     entries = []
+    suffix = "" if dtype == "float32" else "_bf16"
     for name, (_, replaces, _, _) in BWD_KERNELS.items():
         rows = bwd_per_shape[name]
         weight = [per_forward[tuple(r["shape"][1:2] + r["shape"][3:])] for r in rows]
@@ -1605,8 +1918,8 @@ def backward_entries(bwd_per_shape, per_forward, counts):
         for n, r in zip(weight, rows):
             by[r["bound_by"]] += n * r["bound_ms"]
         entries.append({
-            "name": name, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
-            "dtype": "float32", "launches": counts[name],
+            "name": name + suffix, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
+            "dtype": dtype, "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(n * r["ms"] for n, r in zip(weight, rows)),
             "plain_ms": sum(n * r["plain_ms"] for n, r in zip(weight, rows)),
@@ -1616,7 +1929,7 @@ def backward_entries(bwd_per_shape, per_forward, counts):
             "times_are": "sums over the 16 DCN calls of one train step at batch %d" % TRAIN_BATCH,
             "per_shape": rows,
         })
-        require(counts[name] > 0, f"the training path never launched {name}")
+        require(counts[name] > 0, f"the {dtype} training path never launched {name}")
     return entries
 
 
@@ -1681,6 +1994,7 @@ def main() -> int:
     phase_build()
     entries = phase_kernels()
     bwd_per_shape = phase_kernels_bwd()
+    bwd_bf16_per_shape = phase_kernels_bwd_bf16()
     cfg, state, per_forward = phase_model()
     if COMPARE_FWD:
         emit({"phase": "compared_totals", "per": "the 16 calls of one forward, b8: batch 8, b1: batch 1",
@@ -1688,6 +2002,8 @@ def main() -> int:
     launches, shape_counts = phase_serve(cfg, state)
     track_counts, track_launches, _ = phase_track(per_forward)
     train_fwd_launches, train_counts = phase_train(per_forward, entries, bwd_per_shape)
+    train_bf16_counts = phase_train_bf16(per_forward)
+    phase_train_cli()
 
     # All counts are this run's: one forward of the model phase, the serve
     # phase's four forwards (3 `run` + 1 `run_batch`), the train phase's steps.
@@ -1709,7 +2025,8 @@ def main() -> int:
     require(sum(e["launches_track"] for e in entries) == track_launches,
             "tracking launches by shape do not add up to the counter")
     summary = {"kernels": entries + [row_kernel_entry(entries, per_forward, track_launches)]
-               + backward_entries(bwd_per_shape, per_forward, train_counts)}
+               + backward_entries(bwd_per_shape, per_forward, train_counts)
+               + backward_entries(bwd_bf16_per_shape, per_forward, train_bf16_counts, "bfloat16")}
     # A kernel faster than its bound would mean a wrong bound, not a fast
     # kernel: every entry's time, and the float32 times (B=8, B=1) of the
     # forward's entries.

@@ -273,7 +273,10 @@ def test_wrapper_refuses_before_any_build(case, monkeypatch):
     elif case == "co_not_8":
         args, err = _operands(co=20), ValueError
     elif case == "bfloat16":
+        # bf16 operands are taken when all five are bf16; a float32 offset
+        # beside them is not.
         args, err = _operands(dtype=torch.bfloat16), TypeError
+        args[1] = args[1].float()
     elif case == "mixed_dtypes":
         args, err = _operands(), TypeError
         args[3] = args[3].double()

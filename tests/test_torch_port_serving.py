@@ -273,7 +273,9 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     names = {p.relative_to(REPO).as_posix() for p in files}
     for module in ("tracking/kalman.py", "tracking/render.py", "tracking/tracker.py",
-                   "tracking/tracker_baseline.py", "data/video.py", "demo.py"):
+                   "tracking/tracker_baseline.py", "data/video.py", "demo.py",
+                   "data/synthetic.py", "data/dataset.py", "data/loader.py", "data/tfrecord.py",
+                   "utils/checkpoint.py", "utils/logger.py", "utils/tbevents.py", "train.py"):
         assert f"centerpose_tpu_torch/{module}" in names, module
     banned = {"jax", "jaxlib", "flax", "centerpose_tpu", "optax", "orbax"}
     for path in files:
