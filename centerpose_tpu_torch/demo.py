@@ -11,8 +11,13 @@ demo.py:19,54-57). It writes one `<name>.json` per image or frame into
 track id when tracking, and the stage times) and prints the stage times.
 
 Runs on the GPU (`--device cuda`, the default) unless asked for the CPU.
-`--load_model` takes a `.pth` state dict of the reference's names (the JAX
-package's orbax checkpoints belong to that package). Not ported: `--debug`
+`--arch` takes every architecture of the factory (dla_34, dlav1_34,
+dlav0_34, res_XX, resdcn_XX, hourglass). `--load_model` takes a reference
+`.pth` checkpoint (`{epoch, state_dict}` or a bare state dict of the
+reference's names, `module.` prefixes and a dlav0 trunk's `fc` allowed; the
+JAX package's orbax checkpoints belong to that package). Every arch is built
+at the preset's head_conv of 256, so a reference res/resdcn checkpoint, whose
+heads are 64 wide, does not load. Not ported: `--debug`
 canvases and the webcam reader.
 """
 
@@ -33,7 +38,7 @@ def parse_args(argv=None):
                    help="image, folder of images, video file, or frame folder (with --tracking)")
     p.add_argument("--arch", default="dlav1_34")
     p.add_argument("--c", dest="category", default="shoe")
-    p.add_argument("--load_model", default="", help="reference .pth state dict")
+    p.add_argument("--load_model", default="", help="reference .pth checkpoint or state dict")
     p.add_argument("--tracking", action="store_true",
                    help="CenterPoseTrack: dla_34 tracking model + tracker over the frames in order")
     p.add_argument("--vis_thresh", type=float, default=0.3)
@@ -82,13 +87,10 @@ def load_detector(args):
         input_w=args.input_res,
         compute_dtype=args.compute_dtype,
     )
-    state_dict = None
-    if args.load_model:
-        ckpt = torch.load(args.load_model, map_location="cpu")
-        sd = ckpt.get("state_dict", ckpt)
-        state_dict = {k[len("module."):] if k.startswith("module.") else k: v
-                      for k, v in sd.items()}
-    return Detector(cfg, state_dict=state_dict, device=args.device)
+    # A reference checkpoint ({epoch, state_dict, ...} or a bare state_dict):
+    # `Detector` loads it by the reference's rules (`load_reference_state_dict`).
+    ckpt = torch.load(args.load_model, map_location="cpu") if args.load_model else None
+    return Detector(cfg, state_dict=ckpt, device=args.device)
 
 
 def _frames(args):

@@ -46,6 +46,7 @@ from centerpose_tpu_torch.config import DATA_MEAN, DATA_STD, CenterPoseConfig
 from centerpose_tpu_torch.geometry.affine import get_affine_transform, warp_affine
 from centerpose_tpu_torch.geometry.cuboid import cuboid_vertices
 from centerpose_tpu_torch.inference.nms import soft_nms
+from centerpose_tpu_torch.models.convert import load_reference_state_dict
 from centerpose_tpu_torch.models.factory import create_model
 from centerpose_tpu_torch.ops.decode import object_pose_decode
 from centerpose_tpu_torch.ops.pnp import PnPResult, solve_pnp_batch_padded
@@ -127,6 +128,10 @@ def _fetch(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 class Detector:
     """Single-category CenterPose detector (image model or tracking model).
 
+    `state_dict`: weights to load, a reference checkpoint or state dict of
+    the reference's names (`models/convert.py::load_reference_state_dict`);
+    without it the weights are random from `seed`.
+
     Setting `cfg` on a tracking detector also sets the tracker's (the JAX
     package's detector leaves the tracker on the old config; its
     `scripts/bench_e2e.py` swaps the config and so never spawned tracks)."""
@@ -155,7 +160,7 @@ class Detector:
             config, self.device, generator=torch.Generator().manual_seed(seed)
         )
         if state_dict is not None:
-            self.model.load_state_dict(state_dict, strict=True)
+            load_reference_state_dict(self.model, state_dict)
         self.mean = np.array(DATA_MEAN, np.float32).reshape(1, 1, 3)
         self.std = np.array(DATA_STD, np.float32).reshape(1, 1, 3)
 

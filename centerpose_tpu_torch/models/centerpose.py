@@ -1,5 +1,7 @@
-"""The CenterPose network: DLA trunk → DLAUp/IDAUp neck → (convGRU) → heads.
-Counterpart of `centerpose_tpu/models/centerpose.py::CenterPoseNet`.
+"""The CenterPose networks on the DLA trunk, counterparts of
+`centerpose_tpu/models/centerpose.py`: `CenterPoseNet` (DLA trunk →
+DLAUp/IDAUp neck → (convGRU) → heads; dla_34, dlav1_34) and
+`CenterPoseNetV0` (dlav0_34: the plain-conv concat-node neck).
 
 Parity target: `DLASeg` (pose_dla_dcn.py:457-570) with `down_ratio=4`,
 `last_level=5`. Head routing with convGRU (:542-565), image model, 3 steps:
@@ -21,7 +23,8 @@ an idea the reference marks as untried) is not ported and raises.
 [B, H, W, 3 / 1 / 8]) and returns a dict of NHWC head maps at stride 4, like
 the JAX model; inside, tensors are NCHW-shaped in channels_last memory. Every
 head runs its own 3x3 conv (the JAX package fuses the heads of one step into
-one wide conv: same numbers up to float noise).
+one wide conv: same numbers up to float noise). With `head_conv <= 0` every
+head is a single 1x1 conv (`layers.make_head`), on the GRU states too.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from torch import nn
 
 from centerpose_tpu_torch.config import CenterPoseConfig
 from centerpose_tpu_torch.models.conv_gru import ConvGRU
-from centerpose_tpu_torch.models.dla import DLA, DLA34_CHANNELS, DLAUp, IDAUp
-from centerpose_tpu_torch.models.layers import HeadConv
+from centerpose_tpu_torch.models.dla import DLA, DLA34_CHANNELS, DLAUp, DLAUpV0, IDAUp
+from centerpose_tpu_torch.models.layers import heads_to_nhwc, make_head, param_dtype, to_nchw
 
 FIRST_LEVEL = 2  # log2(down_ratio=4)
 LAST_LEVEL = 5
@@ -75,7 +78,7 @@ class CenterPoseNet(nn.Module):
             feat = GRU_HIDDEN
         self.head_names = tuple(config.heads)
         for name, classes in config.heads.items():
-            setattr(self, name, HeadConv(
+            setattr(self, name, make_head(
                 feat, classes, config.head_conv, use_gn=self.use_gru,
                 bias_init_value=-2.19 if "hm" in name else 0.0,  # focal-loss prior
             ))
@@ -94,12 +97,8 @@ class CenterPoseNet(nn.Module):
         pre_hm: Optional[torch.Tensor] = None,
         pre_hm_hp: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        dtype = self.base.base_layer[0].weight.dtype
-
-        def nchw(t):                                 # NHWC → NCHW view (channels_last)
-            return None if t is None else t.to(dtype).permute(0, 3, 1, 2)
-
-        feat = self.features(nchw(x), nchw(pre_img), nchw(pre_hm), nchw(pre_hm_hp))
+        dtype = param_dtype(self)
+        feat = self.features(*(to_nchw(t, dtype) for t in (x, pre_img, pre_hm, pre_hm_hp)))
 
         out: Dict[str, torch.Tensor] = {}
         if self.use_gru:
@@ -111,7 +110,34 @@ class CenterPoseNet(nn.Module):
         else:
             for head in self.head_names:
                 out[head] = getattr(self, head)(feat)
-        # Back to NHWC, in the order of config.heads.
-        return {
-            h: out[h].permute(0, 2, 3, 1).contiguous() for h in self.head_names
-        }
+        return heads_to_nhwc(out, self.head_names)
+
+
+class CenterPoseNetV0(nn.Module):
+    """dlav0_34 (dlav0.py DLASeg, :565-660): the DLA-34 trunk and one
+    `DLAUpV0` aggregate at stride 4 that feeds the heads directly — no IDAUp
+    pass, no convGRU, no GroupNorm, no tracking stems, no deformable
+    convolution. A released checkpoint also holds the trunk's ImageNet
+    classifier (`base.fc.*`), which CenterPose never runs and this module
+    does not have (`models/convert.py::load_reference_state_dict` skips it)."""
+
+    def __init__(self, config: CenterPoseConfig):
+        super().__init__()
+        self.config = config
+        channels = DLA34_CHANNELS
+        self.base = DLA()
+        self.dla_up = DLAUpV0(channels[FIRST_LEVEL:])
+        self.head_names = tuple(config.heads)
+        for name, classes in config.heads.items():
+            setattr(self, name, make_head(
+                channels[FIRST_LEVEL], classes, config.head_conv,
+                bias_init_value=-2.19 if "hm" in name else 0.0,
+            ))
+
+    def forward(self, x: torch.Tensor, pre_img=None, pre_hm=None,
+                pre_hm_hp=None) -> Dict[str, torch.Tensor]:
+        del pre_img, pre_hm, pre_hm_hp            # dlav0 never builds the stems
+        levels = self.base(to_nchw(x, param_dtype(self)))
+        feat = self.dla_up(levels[FIRST_LEVEL:])
+        out = {h: getattr(self, h)(feat) for h in self.head_names}
+        return heads_to_nhwc(out, self.head_names)

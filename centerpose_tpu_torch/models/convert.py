@@ -1,16 +1,26 @@
-"""JAX-package variables ↔ this package's `state_dict`.
+"""JAX-package variables ↔ this package's `state_dict`, and loading a
+reference checkpoint.
 
 The inverse direction of `centerpose_tpu/models/convert.py`: that module fills
 the flax tree from a PyTorch `state_dict` of the reference's names; this one
 takes the flax `{"params", "batch_stats"}` tree (nested dicts of numpy arrays)
 and returns a `state_dict` of the same reference names, which are the names
-this package's modules use. Layout changes:
+this package's modules use, for every architecture of the factory (the DLA
+networks, dlav0, res / resdcn, hourglass). Layout changes:
 
   conv kernel            HWIO [kh, kw, I, O]  → OIHW
   depthwise upsampler    [2f, 2f, 1, C]       → ConvTranspose2d [C, 1, 2f, 2f]
                          (no flip: the JAX package flips when it applies it)
+  full transposed conv   [k, k, I, O]         → ConvTranspose2d [I, O, k, k]
+                         (no flip either; resnet deconv stages)
   DCN weight             [3, 3, C, Co]        → OIHW; offset/mask conv as any conv
   BatchNorm              scale/bias/mean/var  → weight/bias/running_mean/running_var
+
+Two names depend on the tree as a whole, as in the JAX converter: a head's
+output conv is `{head}.3` after a GroupNorm and `{head}.2` without, and the
+BatchNorm after a resnet transposed conv is `deconv_layers.{6i+4}` in a
+resdcn tree, `{3i+1}` in a msra one. A `head_conv <= 0` head (flax `{head}/out`
+with no `conv1`) is the reference's bare conv `{head}.weight` / `{head}.bias`.
 
 `to_jax_tree` goes the other way through the same names map (`_key_for`), so
 that gradients, running statistics and updated parameters of the two packages
@@ -18,13 +28,14 @@ can be compared tree against tree.
 
 The whole tree is walked: a leaf with no mapping is an error, and
 `load_jax_variables` also refuses a leaf the model has no place for, a shape
-that differs, and a model parameter no leaf fills.
+that differs, and a model parameter no leaf fills. `load_reference_state_dict`
+loads a reference checkpoint with the reference's own rules.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +50,37 @@ def _t_conv(w) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
 
 
+def _t_conv_back(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
+
+
+def _t_deconv(w) -> np.ndarray:
+    """[k, k, I, O] ↔ [I, O, k, k] (its own inverse)."""
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 0, 1)))
+
+
+_INVERSE = {_t_conv: _t_conv_back, _t_deconv: _t_deconv, np.asarray: np.asarray}
+
+
+class _Tree(NamedTuple):
+    """What a name depends on beyond its own path."""
+    has_gn: bool          # heads with GroupNorm (the convGRU models)
+    bare_heads: bool      # head_conv <= 0
+    resdcn: bool          # resnet deconv stages with DCN
+    hourglass: bool       # per-stack heads {head}_{s}
+
+
+def _tree_of(variables: Mapping[str, Any]) -> _Tree:
+    tops = {k: v for coll in variables.values() for k, v in coll.items()}
+    heads = [v for v in tops.values() if isinstance(v, Mapping) and "out" in v]
+    return _Tree(
+        has_gn=any("gn" in v for v in heads),
+        bare_heads=any("conv1" not in v for v in heads),
+        resdcn="deconv_dcn0" in tops,
+        hourglass="hg_0" in tops,
+    )
+
+
 def _conv_leaf(leaf: str) -> Tuple[str, Callable]:
     if leaf == "kernel":
         return "weight", _t_conv
@@ -47,7 +89,7 @@ def _conv_leaf(leaf: str) -> Tuple[str, Callable]:
     raise KeyError(leaf)
 
 
-def _key_for(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
+def _key_for(path: Tuple[str, ...], tree: _Tree) -> Tuple[str, Callable]:
     """Map a flax tree path (…, leaf) to (state_dict key, layout transform)."""
     parts = list(path)
     leaf = parts.pop()
@@ -61,7 +103,30 @@ def _key_for(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
             return f"{prefix}.{bn_name}.{_BN[leaf]}", np.asarray
         raise KeyError(sub)
 
-    if parts[0] == "base":
+    def dcn(prefix: str, rest, bn_key: str):
+        """A flax DeformConvBlock under `prefix` (the DCN module's name):
+        its own weight / bias, its offset conv, its BatchNorm at `bn_key`."""
+        if not rest:
+            if leaf == "weight":
+                return f"{prefix}.weight", _t_conv
+            if leaf == "bias":
+                return f"{prefix}.bias", np.asarray
+        elif rest == ["conv_offset_mask"]:
+            name, fn = _conv_leaf(leaf)
+            return f"{prefix}.conv_offset_mask.{name}", fn
+        elif rest == ["bn"]:
+            return f"{bn_key}.{_BN[leaf]}", np.asarray
+        raise KeyError("/".join(rest))
+
+    def residual(prefix: str, comp: str, sub: str):
+        """CornerNet residual: conv1/bn1, conv2/bn2, skip.0/skip.1."""
+        if comp == "skip":
+            return conv_or_bn(f"{prefix}.skip", sub, "0", "1")
+        n = re.fullmatch(r"conv([12])", comp).group(1)
+        return conv_or_bn(prefix, sub, f"conv{n}", f"bn{n}")
+
+    top = parts[0]
+    if top == "base":
         # Stems: base/{base,pre_img,pre_hm,pre_hm_hp}_layer/conv/{conv,bn};
         # Sequential idx 0 = conv, 1 = bn.
         if parts[1] in _STEMS and len(parts) == 4 and parts[2] == "conv":
@@ -87,9 +152,18 @@ def _key_for(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
                 n = rest[0][-1]
                 return conv_or_bn(pre, rest[1], f"conv{n}", f"bn{n}")
 
+    # The dlav0 neck: dla_up/ida_i/{proj_j,node_j}/{conv,bn} (Sequential
+    # [conv, bn, relu]) and dla_up/ida_i/up_j/kernel.
+    if top == "dla_up" and len(parts) >= 3 and re.fullmatch(r"(proj|up|node)_\d+", parts[2]):
+        base = f"dla_up.{parts[1]}.{parts[2]}"
+        if parts[2].startswith("up_") and len(parts) == 3 and leaf == "kernel":
+            return f"{base}.weight", _t_conv
+        if len(parts) == 4:
+            return conv_or_bn(base, parts[3], "0", "1")
+
     # DLAUp / IDAUp stages: {dla_up/ida_k | ida_up}/stage_i/{proj,up,node}.
-    if parts[0] in ("dla_up", "ida_up"):
-        if parts[0] == "dla_up":
+    if top in ("dla_up", "ida_up"):
+        if top == "dla_up":
             base, stage, rest = f"dla_up.{parts[1]}", parts[2], parts[3:]
         else:
             base, stage, rest = "ida_up", parts[1], parts[2:]
@@ -99,41 +173,96 @@ def _key_for(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
             return f"{base}.up_{idx}.weight", _t_conv
         if comp in ("proj", "node"):
             tkey = f"{base}.{comp}_{idx}"
-            if len(rest) == 1:                      # the DCN's own weight / bias
-                if leaf == "weight":
-                    return f"{tkey}.conv.weight", _t_conv
-                if leaf == "bias":
-                    return f"{tkey}.conv.bias", np.asarray
-            elif len(rest) == 2 and rest[1] == "conv_offset_mask":
-                name, fn = _conv_leaf(leaf)
-                return f"{tkey}.conv.conv_offset_mask.{name}", fn
-            elif len(rest) == 2 and rest[1] == "bn":
-                return f"{tkey}.actf.0.{_BN[leaf]}", np.asarray
+            return dcn(f"{tkey}.conv", rest[1:], f"{tkey}.actf.0")
 
     # ConvGRU cells: convGRU/cell0/W??/{kernel,bias}.
-    if parts[0] == "convGRU" and len(parts) == 3:
+    if top == "convGRU" and len(parts) == 3:
         name, fn = _conv_leaf(leaf)
         return f"convGRU.{parts[1]}.{parts[2]}.{name}", fn
 
-    # Heads: <head>/{conv1,gn,out}; Sequential [conv, (GN), ReLU, conv].
+    # ResNet trunk: stem/{conv,bn} and layer{s}_{b}/{conv{n},downsample}/{conv,bn}.
+    if top == "stem" and len(parts) == 2:
+        if parts[1] == "conv" and leaf == "kernel":
+            return "conv1.weight", _t_conv
+        if parts[1] == "bn":
+            return f"bn1.{_BN[leaf]}", np.asarray
+    m = re.fullmatch(r"layer(\d+)_(\d+)", top)
+    if m and len(parts) == 3:
+        pre = f"layer{m.group(1)}.{m.group(2)}"
+        if parts[1] == "downsample":
+            return conv_or_bn(f"{pre}.downsample", parts[2], "0", "1")
+        n = re.fullmatch(r"conv(\d)", parts[1]).group(1)
+        return conv_or_bn(pre, parts[2], f"conv{n}", f"bn{n}")
+    # ResNet deconv stages (Sequential deconv_layers): msra [convT, BN, ReLU]
+    # x 3; resdcn [DCN, BN, ReLU, convT, BN, ReLU] x 3.
+    m = re.fullmatch(r"deconv(_bn|_dcn|_up)?(\d+)", top)
+    if m:
+        kind, i = m.group(1), int(m.group(2))
+        if kind is None and len(parts) == 1 and leaf == "kernel":
+            return f"deconv_layers.{3 * i}.weight", _t_deconv
+        if kind == "_up" and len(parts) == 1 and leaf == "kernel":
+            return f"deconv_layers.{6 * i + 3}.weight", _t_deconv
+        if kind == "_bn" and len(parts) == 1:
+            return f"deconv_layers.{6 * i + 4 if tree.resdcn else 3 * i + 1}.{_BN[leaf]}", np.asarray
+        if kind == "_dcn":
+            return dcn(f"deconv_layers.{6 * i}", parts[1:], f"deconv_layers.{6 * i + 1}")
+
+    # Hourglass: pre_conv / pre_res, hg_{s}/... kp modules, feat_{s},
+    # inter_{a,b}_{s}, inter_res_{s}, per-stack heads {head}_{s}.
+    if top == "pre_conv" and len(parts) == 2:
+        return conv_or_bn("pre.0", parts[1], "conv", "bn")
+    if top == "pre_res" and len(parts) == 3:
+        return residual("pre.1", parts[1], parts[2])
+    m = re.fullmatch(r"hg_(\d+)", top)
+    if m and len(parts) >= 4:
+        toks = ["kps", m.group(1)]
+        for p in parts[1:-2]:
+            mm = re.fullmatch(r"(up1|low1|low2|low3)_(\d+)", p)
+            if mm:
+                toks += [mm.group(1), mm.group(2)]
+            elif p == "low2":
+                toks.append(p)
+            else:
+                raise KeyError(p)
+        return residual(".".join(toks), parts[-2], parts[-1])
+    m = re.fullmatch(r"feat_(\d+)", top)
+    if m and len(parts) == 2:
+        return conv_or_bn(f"cnvs.{m.group(1)}", parts[1], "conv", "bn")
+    m = re.fullmatch(r"inter_(a|b)_(\d+)", top)
+    if m and len(parts) == 2:
+        seq = "inters_" if m.group(1) == "a" else "cnvs_"
+        return conv_or_bn(f"{seq}.{m.group(2)}", parts[1], "0", "1")
+    m = re.fullmatch(r"inter_res_(\d+)", top)
+    if m and len(parts) == 3:
+        return residual(f"inters.{m.group(1)}", parts[1], parts[2])
+
+    # Heads: <head>/{conv1,gn,out}; Sequential [conv, (GN), ReLU, conv], or
+    # the bare conv of head_conv <= 0; the hourglass's {head}_{s}/{conv1,out}
+    # is `{head}.{s}` = [convolution (conv with bias), 1x1 conv].
     if len(parts) == 2 and parts[1] in ("conv1", "gn", "out"):
         head, sub = parts
+        if tree.hourglass:
+            m = re.fullmatch(r"(.+)_(\d+)", head)
+            if sub == "gn" or not m:
+                raise KeyError(head)
+            name, fn = _conv_leaf(leaf)
+            where = "0.conv" if sub == "conv1" else "1"
+            return f"{m.group(1)}.{m.group(2)}.{where}.{name}", fn
         if sub == "gn":
             return f"{head}.1.{'weight' if leaf == 'scale' else _BN[leaf]}", np.asarray
         name, fn = _conv_leaf(leaf)
-        idx = "0" if sub == "conv1" else ("3" if has_gn else "2")
-        return f"{head}.{idx}.{name}", fn
+        if sub == "conv1":
+            return f"{head}.0.{name}", fn
+        if tree.bare_heads:
+            return f"{head}.{name}", fn
+        return f"{head}.{'3' if tree.has_gn else '2'}.{name}", fn
 
     raise KeyError("/".join(path))
 
 
-def _has_gn(params: Mapping[str, Any]) -> bool:
-    return any(isinstance(v, Mapping) and "gn" in v for v in params.values())
-
-
-def _lookup(path: Tuple[str, ...], has_gn: bool) -> Tuple[str, Callable]:
+def _lookup(path: Tuple[str, ...], tree: _Tree) -> Tuple[str, Callable]:
     try:
-        return _key_for(path, has_gn)
+        return _key_for(path, tree)
     except (KeyError, AttributeError, IndexError) as err:
         raise KeyError(f"no state_dict name for the leaf {'/'.join(path)}") from err
 
@@ -145,7 +274,7 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if extra:
         raise KeyError(f"unknown variable collections: {sorted(extra)}")
     params = variables["params"]
-    has_gn = _has_gn(params)
+    tree_kind = _tree_of(variables)
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path):
@@ -153,7 +282,7 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for k, v in tree.items():
                 walk(v, path + (k,))
             return
-        key, transform = _lookup(path, has_gn)
+        key, transform = _lookup(path, tree_kind)
         if key in out:
             raise KeyError(f"two leaves map to {key!r} ({'/'.join(path)})")
         out[key] = torch.from_numpy(
@@ -178,19 +307,17 @@ def to_jax_tree(named: Mapping[str, Any], like: Mapping[str, Any]) -> Dict[str, 
     extra = set(like) - {"params", "batch_stats"}
     if extra:
         raise KeyError(f"unknown variable collections: {sorted(extra)}")
-    has_gn = _has_gn(like.get("params", {}))     # only names of `params` depend on it
+    tree_kind = _tree_of(like)
 
     def walk(tree, path):
         if isinstance(tree, Mapping):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        key, transform = _lookup(path, has_gn)
+        key, transform = _lookup(path, tree_kind)
         if key not in named:
             raise KeyError(f"{key!r} (leaf {'/'.join(path)}) is not among the named tensors")
         val = named[key]
-        val = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
-        if transform is _t_conv:                       # OIHW → HWIO
-            val = np.transpose(val, (2, 3, 1, 0))
-        return np.ascontiguousarray(val, dtype=np.float32)
+        val = val.detach().cpu().float().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        return np.ascontiguousarray(_INVERSE[transform](val), dtype=np.float32)
 
     return {coll: walk(tree, ()) for coll, tree in like.items()}
 
@@ -214,3 +341,33 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> 
                 f"model {tuple(own[key].shape)}"
             )
     model.load_state_dict(sd, strict=True)
+
+
+# Keys of a reference checkpoint that no network of this package has and
+# that the reference's loader also passes over: BatchNorm step counters, and
+# the ImageNet classifier that released dlav0 checkpoints keep in the trunk
+# (`base.fc.*`; centerpose_tpu/models/convert.py:347-351).
+_IGNORABLE = re.compile(r"num_batches_tracked$|^fc\.|\.fc\.")
+
+
+def load_reference_state_dict(model: torch.nn.Module, checkpoint: Mapping[str, Any]) -> None:
+    """Load a reference checkpoint into `model`: a `state_dict`, or a
+    checkpoint dict holding one under "state_dict" (`{epoch, state_dict,
+    optimizer}`, the reference's `save_model`). DataParallel's `module.`
+    prefixes are stripped; keys matching `_IGNORABLE` that the model lacks
+    are skipped (and a missing `num_batches_tracked` keeps the model's);
+    every other name and shape must be the model's, else KeyError /
+    ValueError before anything is written."""
+    sd = checkpoint.get("state_dict", checkpoint)
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+    own = model.state_dict()
+    unknown = sorted(k for k in set(sd) - set(own) if not _IGNORABLE.search(k))
+    missing = sorted(k for k in set(own) - set(sd) if not k.endswith("num_batches_tracked"))
+    if unknown or missing:
+        raise KeyError(
+            f"checkpoint mismatch: not in the model {unknown[:8]}, not in the checkpoint {missing[:8]}")
+    for key, val in sd.items():
+        if key in own and tuple(val.shape) != tuple(own[key].shape):
+            raise ValueError(
+                f"shape mismatch for {key}: checkpoint {tuple(val.shape)} vs model {tuple(own[key].shape)}")
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items() if k in own}, strict=False)

@@ -10,8 +10,11 @@ The stem is the plain 7x7 convolution (the JAX package's space-to-depth stem
 is a TPU layout). The tracking model adds the CenterTrack-style early-fusion
 stems (:253-271, 310-322): `pre_img_layer`, `pre_hm_layer` and
 `pre_hm_hp_layer`, the same 7x7 conv + BN + ReLU as `base_layer` on 3, 1 and 8
-input channels, each added to the stem output when its input is given. Not
-ported yet: the `dlav0` neck (`DLAUpV0`).
+input channels, each added to the stem output when its input is given.
+
+The `dlav0` neck (dlav0.py:469-555) is here too: `IDAUpV0` / `DLAUpV0`, plain
+1x1 projections, the same depthwise bilinear upsampler and 3x3 conv + BN +
+ReLU nodes over concatenated pairs, no deformable convolution.
 """
 
 from __future__ import annotations
@@ -141,3 +144,67 @@ class DLAUp(nn.Module):
             layers[j:] = getattr(self, f"ida_{i}")(layers[j:])
             out.insert(0, layers[-1])
         return out
+
+
+class IDAUpV0(nn.Module):
+    """dlav0 iterative deep aggregation (dlav0.py:469-525). Every level is
+    brought to `out_dim` channels (`proj_i`: 1x1 conv + BN + ReLU where its
+    width differs, nothing otherwise) and to the shallowest stride (`up_i`,
+    the depthwise bilinear upsampler, where its factor is > 1), then chained
+    through `node_i` (3x3 conv + BN + ReLU) over the channel concatenation
+    [aggregate, level i]. Returns (aggregate, [node outputs])."""
+
+    def __init__(self, out_dim: int, channels: Sequence[int], up_factors: Sequence[int]):
+        super().__init__()
+        self.n = len(channels)
+        for i, c in enumerate(channels):
+            if int(c) != out_dim:
+                setattr(self, f"proj_{i}", conv_bn_relu(int(c), out_dim, 1))
+            f = int(up_factors[i])
+            if f > 1:
+                setattr(self, f"up_{i}", UpsampleConv(out_dim, f))
+        for i in range(1, self.n):
+            setattr(self, f"node_{i}", conv_bn_relu(2 * out_dim, out_dim, 3))
+
+    def forward(self, layers: Sequence[torch.Tensor]):
+        assert len(layers) == self.n, (len(layers), self.n)
+        ups = []
+        for i, x in enumerate(layers):
+            for name in (f"proj_{i}", f"up_{i}"):
+                mod = getattr(self, name, None)
+                if mod is not None:
+                    x = mod(x)
+            ups.append(x)
+        x, y = ups[0], []
+        for i in range(1, self.n):
+            x = getattr(self, f"node_{i}")(torch.cat([x, ups[i]], dim=1))
+            y.append(x)
+        return x, y
+
+
+class DLAUpV0(nn.Module):
+    """dlav0 pyramid aggregation (dlav0.py:528-555): IDAUpV0 over the deepest
+    remaining slice, its node outputs replacing the deeper levels; returns
+    the stride-4 aggregate for first_level=2."""
+
+    def __init__(self, channels: Sequence[int]):
+        super().__init__()
+        channels = list(channels)
+        self.n = len(channels)
+        scales = np.array([2 ** i for i in range(self.n)], dtype=int)
+        in_channels = list(channels)
+        for i in range(self.n - 1):
+            j = -i - 2
+            setattr(self, f"ida_{i}", IDAUpV0(
+                channels[j], in_channels[j:], (scales[j:] // scales[j]).tolist()
+            ))
+            scales[j + 1:] = scales[j]
+            in_channels[j + 1:] = [channels[j]] * len(in_channels[j + 1:])
+
+    def forward(self, layers: Sequence[torch.Tensor]) -> torch.Tensor:
+        layers = list(layers)
+        x = layers[-1]
+        for i in range(self.n - 1):
+            x, y = getattr(self, f"ida_{i}")(layers[-i - 2:])
+            layers[-i - 1:] = y
+        return x

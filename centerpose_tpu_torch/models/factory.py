@@ -1,11 +1,17 @@
 """Model factory: arch string → `nn.Module`, counterpart of
-`centerpose_tpu/models/factory.py`.
+`centerpose_tpu/models/factory.py` (arch strings `name_numlayers`, as the
+reference's model.py:16-31):
 
-Ported: `dla_34` (DLA-34 + DCN neck, plain heads; with `tracking_task` the
-CenterPoseTrack model) and `dlav1_34` (the same with convGRU-chained heads,
-image model only). The other architectures of the JAX package
-(`dlav0_34`, `res_*`, `resdcn_*`, `hourglass`) raise `NotImplementedError`;
-ROADMAP.md lists them.
+  dla_34        DLA-34 + DCN neck, plain heads (with `tracking_task` the
+                CenterPoseTrack model)
+  dlav1_34      the same with convGRU-chained heads (image model)
+  dlav0_34      DLA-34 + the plain-conv concat-node neck (`CenterPoseNetV0`)
+  res_XX        ResNet-XX (18/34/50/101/152) + three transposed-conv stages
+  resdcn_XX     ResNet-XX + three DCN + bilinear transposed-conv stages
+  hourglass     CornerNet's 2-stack large hourglass
+
+Any arch takes `head_conv <= 0` (single 1x1 conv heads) but the hourglass,
+whose heads are 256 wide by construction.
 """
 
 from __future__ import annotations
@@ -16,17 +22,42 @@ import torch
 from torch import nn
 
 from centerpose_tpu_torch.config import CenterPoseConfig
-from centerpose_tpu_torch.models.centerpose import CenterPoseNet
-from centerpose_tpu_torch.models.layers import DCN, UpsampleConv
+from centerpose_tpu_torch.models.centerpose import CenterPoseNet, CenterPoseNetV0
+from centerpose_tpu_torch.models.hourglass import HourglassNet
+from centerpose_tpu_torch.models.layers import (
+    DCN,
+    TorchConvTranspose,
+    UpsampleConv,
+    head_output_conv,
+)
+from centerpose_tpu_torch.models.resnet import PoseResNet
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _build_network(config: CenterPoseConfig) -> nn.Module:
+    """The CPU-resident float32 module of `config.arch` (the JAX factory's
+    dispatch); `create_model` is the entry point."""
+    arch = config.arch
+    name, _, depth = arch.partition("_")
+    if name in ("dla", "dlav1"):
+        return CenterPoseNet(config)
+    if name == "dlav0":
+        return CenterPoseNetV0(config)
+    if name in ("res", "resdcn") and depth.isdigit():
+        return PoseResNet(config, num_layers=int(depth), deformable_deconv=name == "resdcn")
+    if name == "hourglass":
+        return HourglassNet(config)
+    raise ValueError(f"unknown arch: {arch!r}")
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter of `model` from `generator` (no use of the
     global random state): convolutions uniform in ±1/sqrt(fan_in) like
-    `nn.Conv2d`'s default, biases 0 except the heatmap heads' -2.19, DCN offset
-    convs 0, upsamplers bilinear, norms at identity."""
+    `nn.Conv2d`'s default (a transposed conv's fan-in is cin * k * k),
+    biases 0 except the heatmap heads' -2.19, DCN offset convs 0, upsamplers
+    bilinear (resdcn's transposed convs in output channel 0 only), norms at
+    identity."""
 
     def uniform_(t: torch.Tensor, fan_in: int) -> None:
         bound = 1.0 / (fan_in ** 0.5)
@@ -36,6 +67,8 @@ def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
         for mod in model.modules():
             if isinstance(mod, UpsampleConv):
                 mod.reset_bilinear()
+            elif isinstance(mod, TorchConvTranspose):
+                mod.reset(generator)
             elif isinstance(mod, DCN):
                 uniform_(mod.weight, mod.weight[0].numel())
                 mod.bias.zero_()
@@ -55,7 +88,7 @@ def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 mod.conv_offset_mask.bias.zero_()
             bias0 = getattr(mod, "bias_init_value", None)
             if bias0 is not None:
-                mod[-1].bias.fill_(bias0)
+                head_output_conv(mod).bias.fill_(bias0)
 
 
 def create_model(
@@ -73,19 +106,10 @@ def create_model(
     JAX package's flax modules cast float32 parameters at use). Weights are
     random, drawn from `generator` (seed 0 when None). Asked for "cuda" on a
     host without a GPU this raises; it never moves to the CPU by itself."""
-    arch = config.arch
-    name = arch.split("_")[0] if "_" in arch else arch
-    if name not in ("dla", "dlav1"):
-        if name in ("dlav0", "res", "resdcn", "hourglass"):
-            raise NotImplementedError(
-                f"arch {arch!r} is not ported to centerpose_tpu_torch yet; "
-                "see ROADMAP.md (modules still to port)"
-            )
-        raise ValueError(f"unknown arch: {arch!r}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     with torch.random.fork_rng(devices=[]):       # leave the global state alone
-        model = CenterPoseNet(config)
+        model = _build_network(config)
     reset_parameters(model, generator)
     dtype = _DTYPES[param_dtype or config.compute_dtype]
     model = model.to(device=torch.device(device), dtype=dtype)

@@ -16,9 +16,12 @@ Parameter names are those of the reference's PyTorch `state_dict`
 released checkpoint loads with `load_state_dict` and `models/convert.py` of
 this package maps the JAX package's variables onto the same names.
 
+Also here: the full transposed convolution of the ResNet deconv stages
+(`TorchConvTranspose`, msra_resnet.py:207-235, resnet_dcn.py:218-247) and the
+single 1x1 conv head of `head_conv <= 0` (`make_head`, pose_dla_dcn.py:513-520).
+
 Not here: the JAX package's `S2DConvBN`, `SplitHeadConv` and `_batch_chunked`
-(re-arrangements for the TPU's matrix unit and memory) and
-`TorchConvTranspose` (used by architectures that are not ported yet).
+(re-arrangements for the TPU's matrix unit and memory).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
+def bn2d(channels: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
@@ -47,7 +50,7 @@ def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
     mods: List[nn.Module] = [
         nn.Conv2d(cin, cout, kernel, stride=stride, padding=pad,
                   dilation=dilation, bias=False),
-        _bn(cout),
+        bn2d(cout),
     ]
     if relu:
         mods.append(nn.ReLU(inplace=True))
@@ -61,10 +64,10 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=dilation,
                                dilation=dilation, bias=False)
-        self.bn1 = _bn(cout)
+        self.bn1 = bn2d(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, stride=1, padding=dilation,
                                dilation=dilation, bias=False)
-        self.bn2 = _bn(cout)
+        self.bn2 = bn2d(cout)
 
     def forward(self, x, residual=None):
         if residual is None:
@@ -80,7 +83,7 @@ class Root(nn.Module):
     def __init__(self, cin: int, cout: int, residual: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 1, bias=False)
-        self.bn = _bn(cout)
+        self.bn = bn2d(cout)
         self.residual = residual
 
     def forward(self, children: Sequence[torch.Tensor]):
@@ -200,7 +203,7 @@ class DeformConvBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.actf = nn.Sequential(_bn(cout), nn.ReLU(inplace=True))
+        self.actf = nn.Sequential(bn2d(cout), nn.ReLU(inplace=True))
         self.conv = DCN(cin, cout)
 
     def forward(self, x):
@@ -241,17 +244,43 @@ class UpsampleConv(nn.ConvTranspose2d):
         return super().forward(x).contiguous(memory_format=torch.channels_last)
 
 
+class TorchConvTranspose(nn.ConvTranspose2d):
+    """Full transposed conv x2 of the ResNet deconv stages:
+    nn.ConvTranspose2d(cin, cout, 4, stride=2, padding=1, bias=False). The
+    weight is [cin, cout, 4, 4]; the JAX package stores the same numbers as
+    [4, 4, cin, cout] and flips them when it applies them as an ordinary
+    convolution, so no flip is needed here. Init: uniform in
+    +-1/sqrt(cin * 16), or with `bilinear_init` (resdcn) the reference's
+    `fill_up_weights` on a full weight, which writes the bilinear stencil
+    into output channel 0 of every input channel and leaves the others 0
+    (resnet_dcn.py:22-31, kept as the reference has it)."""
+
+    def __init__(self, cin: int, cout: int, bilinear_init: bool = False):
+        super().__init__(cin, cout, 4, stride=2, padding=1, bias=False)
+        self.bilinear_init = bilinear_init
+        self.reset(None)
+
+    def reset(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            if self.bilinear_init:
+                self.weight.zero_()
+                self.weight[:, 0] = bilinear_upsample_kernel(2)
+            else:
+                bound = 1.0 / math.sqrt(self.weight.shape[0] * 16)
+                self.weight.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x):
+        return super().forward(x).contiguous(memory_format=torch.channels_last)
+
+
 class HeadConv(nn.Sequential):
     """Prediction head: 3x3 conv -> [GroupNorm] -> ReLU -> 1x1 conv
-    (pose_dla_dcn.py:491-521). GroupNorm(32, eps 1e-5) is inserted when the
-    convGRU chain is active; heatmap heads get a -2.19 output bias."""
+    (pose_dla_dcn.py:491-521), `head_conv` > 0 channels wide (`make_head`
+    builds the head for any `head_conv`). GroupNorm(32, eps 1e-5) is inserted
+    when the convGRU chain is active; heatmap heads get a -2.19 output bias."""
 
     def __init__(self, cin: int, classes: int, head_conv: int = 256,
                  use_gn: bool = False, bias_init_value: float = 0.0):
-        if head_conv <= 0:
-            raise NotImplementedError(
-                "head_conv <= 0 (single 1x1 conv heads) is not ported"
-            )
         mods: List[nn.Module] = [nn.Conv2d(cin, head_conv, 3, padding=1)]
         if use_gn:
             groups = 32 if head_conv % 32 == 0 else 16
@@ -261,3 +290,43 @@ class HeadConv(nn.Sequential):
         super().__init__(*mods)
         self.bias_init_value = bias_init_value
         nn.init.constant_(self[-1].bias, bias_init_value)
+
+
+class BareHead(nn.Conv2d):
+    """The `head_conv <= 0` head: one 1x1 conv with bias, a bare `nn.Conv2d`
+    in the reference (state_dict keys `hm.weight`, `hm.bias`;
+    pose_dla_dcn.py:513-520); heatmap heads get a -2.19 bias."""
+
+    def __init__(self, cin: int, classes: int, bias_init_value: float = 0.0):
+        super().__init__(cin, classes, 1)
+        self.bias_init_value = bias_init_value
+        nn.init.constant_(self.bias, bias_init_value)
+
+
+def make_head(cin: int, classes: int, head_conv: int, use_gn: bool = False,
+              bias_init_value: float = 0.0) -> nn.Module:
+    """`HeadConv` for `head_conv` > 0, else `BareHead` (no GroupNorm: there is
+    no hidden layer to normalise)."""
+    if head_conv > 0:
+        return HeadConv(cin, classes, head_conv, use_gn, bias_init_value)
+    return BareHead(cin, classes, bias_init_value)
+
+
+def head_output_conv(head: nn.Module) -> nn.Conv2d:
+    """The conv whose bias carries a head's `bias_init_value`."""
+    return head if isinstance(head, nn.Conv2d) else head[-1]
+
+
+def param_dtype(module: nn.Module) -> torch.dtype:
+    """The type the network computes in (serving): that of its parameters."""
+    return next(module.parameters()).dtype
+
+
+def to_nchw(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """NHWC batch -> NCHW view in `dtype` (channels_last memory)."""
+    return None if t is None else t.to(dtype).permute(0, 3, 1, 2)
+
+
+def heads_to_nhwc(out, names) -> dict:
+    """NCHW head maps -> contiguous NHWC, in the order of `names`."""
+    return {h: out[h].permute(0, 2, 3, 1).contiguous() for h in names}

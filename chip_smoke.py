@@ -6,9 +6,10 @@
 drives `centerpose_tpu_torch`'s serving path and its training paths (float32,
 bf16 mixed precision, and the training CLI on the package's own synthetic
 data) at the full width of the flagship model (dlav1_34 at 512x512, random
-weights from seed 0), and its video-tracking path with the CenterPoseTrack
-model (dla_34 at 512x512, one frame per call), through the entry points a
-user calls, builds the CUDA
+weights from seed 0), its video-tracking path with the CenterPoseTrack
+model (dla_34 at 512x512, one frame per call), and the other architectures
+(res_18, resdcn_18, dlav0_34, hourglass at 512x512, served and trained)
+through the entry points a user calls, builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and shows that every path really went through
 them. Every phase prints one JSON line; a phase
@@ -151,6 +152,31 @@ Phases:
            `--resume` for one more. The step 2 -> 4, finite losses,
            checkpoints, bf16 launches per step and per validation batch; ms
            per step and the share spent waiting for the loader.
+  kernels_r50
+           resdcn_50's first DCN at 512x512 (16x16, C 2048 -> Co 256, K = 9 x
+           2048, a K no DLA shape has) at batch 8: the forward in float32 and
+           bf16 and the fused backward in float32 and bf16 against the plain
+           versions at the kernels phases' tolerances; plans, times and
+           bounds (not part of the 16-call totals).
+  archs    res_18, resdcn_18, dlav0_34 and hourglass, `preset("centerpose_dla",
+           arch=A)` at 512x512 (head_conv 256; the hourglass's heads are 256
+           wide by construction), random weights from seed 0, resdcn's offset
+           convs drawn by `randomize_offset_convs`. Each: a bf16 `Detector`
+           loads a reference checkpoint of another model of the arch
+           (`{epoch, state_dict}`, `module.` prefixes, dlav0 with the
+           trunk's `base.fc.*`) through `load_reference_state_dict`, and its
+           outputs must be that model's to the bit; then `run_batch` on 8
+           frames of 480x640 and one `run` (counters set to 0 just before,
+           read just after), net + decode ms per batch of 8; then
+           `make_train_step` at batch 8 in float32 (TF32 off) and in bf16
+           mixed precision: a warm-up and 3 timed steps each, ms per step,
+           images/s, peak memory. resdcn_18 must launch the forward kernel
+           3 times per forward and the fused backward 3 times per step, in
+           each type, at shapes the kernels phase holds (PRODUCTION_SHAPES);
+           the other three none. resdcn_18 also goes through the kernels
+           against the plain DCN at 128x128 (the train phase's bounds), and
+           its kernels' share of each step is computed from this run's
+           per-call times. One line per architecture.
 
 Bounds: float32 operations are counted at the rate of float32-accurate
 products on the tensor cores (3xTF32: a third of 495 TFLOP/s), bf16 at 989
@@ -1610,6 +1636,60 @@ def finetune_steps(cfg, model, batch, fwd_launches: Counter, count: str):
     return finetune
 
 
+def kernels_vs_plain(small):
+    """The network of `small` (128x128, batch 2) through the DCN kernels
+    against the same network through the plain DCN, from the same weights
+    on the same batch: every gradient with BatchNorm on running statistics
+    within 1e-3 of the parameter's largest gradient, and one train step's
+    loss within 1e-4 relative and gradient within 1 % in L2 norm."""
+    batch = synthetic_batch(small, 2, seed=3)
+    loss_cfg = loss_config_from(small)
+    real = layers.dcn_v2_forward
+
+    def through(route, fn):
+        """fn(model) on a fresh copy of the same network, DCN through `route`."""
+        model = train_model(small)
+        layers.dcn_v2_forward = route
+        try:
+            return fn(model)
+        finally:
+            layers.dcn_v2_forward = real
+
+    def running_stats_grads(model):
+        model.eval()                                     # BatchNorm on running statistics
+        loss = centerpose_loss(model(batch["input"]), batch, loss_cfg, "train")[0]
+        loss.backward()
+        return loss.item(), flat_grads(model)
+
+    def one_step(model):
+        state, tx = create_train_state(small, model, steps_per_epoch=1000)
+        _, stats = make_train_step(small, model, tx)(state, batch)
+        return stats["loss"].item(), flat_grads(model)
+
+    worst_rel = 0.0
+    loss_k, grads_k = through(real, running_stats_grads)
+    loss_p, grads_p = through(dcn_v2, running_stats_grads)
+    require(set(grads_k) == set(grads_p), "kernel and plain routes give gradients to different parameters")
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"128x128 loss: kernels {loss_k}, plain {loss_p}")
+    for k, ref in grads_p.items():
+        err = (grads_k[k] - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        require(err <= 1e-3 * scale + 1e-6, f"128x128, running statistics: gradient of {k} off by {err} (max {scale})")
+        worst_rel = max(worst_rel, err / max(scale, 1e-6))
+    step_loss_k, step_k = through(real, one_step)
+    step_loss_p, step_p = through(dcn_v2, one_step)
+    require(abs(step_loss_k - step_loss_p) <= 1e-4 * abs(step_loss_p),
+            f"128x128 train step loss: kernels {step_loss_k}, plain {step_loss_p}")
+    step_rel = l2([step_k[k] - step_p[k] for k in step_p]) / l2(step_p.values())
+    require(step_rel <= 0.01, f"128x128 train step: gradients differ by {step_rel} in L2 norm")
+    return {
+        "arch": small.arch, "input": [2, small.input_h, small.input_w, 3],
+        "running_statistics": {"loss": [loss_k, loss_p], "worst_grad_err_rel_to_param_max": worst_rel,
+                               "limit": 1e-3},
+        "train_step": {"loss": [step_loss_k, step_loss_p], "grad_rel_l2": step_rel, "limit": 0.01},
+    }
+
+
 def phase_train(per_forward, fwd_entries, bwd_per_shape):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1696,47 +1776,7 @@ def phase_train(per_forward, fwd_entries, bwd_per_shape):
     dcn_bwd_ms = sum(n * bwd_ms[shape] for shape, n in per_forward.items())
 
     # ---- kernels against the plain DCN through the whole network, 128x128 ---
-    small = preset("centerpose", input_h=128, input_w=128, batch_size=2)
-    batch = synthetic_batch(small, 2, seed=3)
-    loss_cfg = loss_config_from(small)
-    real = layers.dcn_v2_forward
-
-    def through(route, fn):
-        """fn(model) on a fresh copy of the same network, DCN through `route`."""
-        model = train_model(small)
-        layers.dcn_v2_forward = route
-        try:
-            return fn(model)
-        finally:
-            layers.dcn_v2_forward = real
-
-    def running_stats_grads(model):
-        model.eval()                                     # BatchNorm on running statistics
-        loss = centerpose_loss(model(batch["input"]), batch, loss_cfg, "train")[0]
-        loss.backward()
-        return loss.item(), flat_grads(model)
-
-    def one_step(model):
-        state, tx = create_train_state(small, model, steps_per_epoch=1000)
-        _, stats = make_train_step(small, model, tx)(state, batch)
-        return stats["loss"].item(), flat_grads(model)
-
-    worst_rel = 0.0
-    loss_k, grads_k = through(real, running_stats_grads)
-    loss_p, grads_p = through(dcn_v2, running_stats_grads)
-    require(set(grads_k) == set(grads_p), "kernel and plain routes give gradients to different parameters")
-    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"128x128 loss: kernels {loss_k}, plain {loss_p}")
-    for k, ref in grads_p.items():
-        err = (grads_k[k] - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        require(err <= 1e-3 * scale + 1e-6, f"128x128, running statistics: gradient of {k} off by {err} (max {scale})")
-        worst_rel = max(worst_rel, err / max(scale, 1e-6))
-    step_loss_k, step_k = through(real, one_step)
-    step_loss_p, step_p = through(dcn_v2, one_step)
-    require(abs(step_loss_k - step_loss_p) <= 1e-4 * abs(step_loss_p),
-            f"128x128 train step loss: kernels {step_loss_k}, plain {step_loss_p}")
-    step_rel = l2([step_k[k] - step_p[k] for k in step_p]) / l2(step_p.values())
-    require(step_rel <= 0.01, f"128x128 train step: gradients differ by {step_rel} in L2 norm")
+    vs_plain = kernels_vs_plain(preset("centerpose", input_h=128, input_w=128, batch_size=2))
 
     emit({
         "phase": "train", "arch": cfg.arch, "input": [batch_size, INPUT, INPUT, 3], "dtype": "float32",
@@ -1751,11 +1791,7 @@ def phase_train(per_forward, fwd_entries, bwd_per_shape):
         "dcn_share_of_step": (dcn_fwd_ms + dcn_bwd_ms) / step_ms,
         "peak_memory_mb": peak_memory / 2 ** 20, "peak_memory_full_step_mb": full_step_memory / 2 ** 20,
         "finetune": finetune, "profiled_step": profile_f32,
-        "kernels_vs_plain_128": {
-            "running_statistics": {"loss": [loss_k, loss_p], "worst_grad_err_rel_to_param_max": worst_rel,
-                                   "limit": 1e-3},
-            "train_step": {"loss": [step_loss_k, step_loss_p], "grad_rel_l2": step_rel, "limit": 0.01},
-        },
+        "kernels_vs_plain_128": vs_plain,
     })
     return fwd_launches, counts
 
@@ -1904,6 +1940,241 @@ def phase_train_cli():
     })
 
 
+# ------------------------------------------------------------------- archs
+# The other architectures of the factory, at full width and depth (512x512,
+# the JAX preset's head_conv 256): their DCN blocks per forward (resdcn's
+# three deconv stages) and the (H, C, Co) the kernels see there.
+ARCHS = {"res_18": 0, "resdcn_18": 3, "dlav0_34": 0, "hourglass": 0}
+ARCH_TRAIN_STEPS = 3
+# resdcn_50's first DCN at 512x512: the stride-32 map of 2048 channels, K = 9
+# x 2048, which no DLA shape has (held alone, out of the 16-call totals).
+R50_SHAPE = (16, 2048, 256)
+
+
+def reference_checkpoint(model, arch):
+    """`model`'s weights as a reference checkpoint: `{epoch, state_dict}`
+    with DataParallel's `module.` prefixes, and for dlav0 the trunk's
+    ImageNet classifier that released checkpoints keep (`base.fc.*`)."""
+    sd = {"module." + k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    if arch.startswith("dlav0"):
+        sd["module.base.fc.weight"] = torch.zeros(1000, 512, 1, 1)
+        sd["module.base.fc.bias"] = torch.zeros(1000)
+    return {"epoch": 1, "state_dict": sd}
+
+
+def launches_now():
+    fused = dcn_bwd.dcn_v2_bwd_fused
+    return {"dcn_v2_fwd": dcn_v2_forward.launches - dcn_v2_forward.launches_bf16,
+            "dcn_v2_fwd_bf16": dcn_v2_forward.launches_bf16,
+            "dcn_v2_bwd_fused": fused.launches - fused.launches_bf16,
+            "dcn_v2_bwd_fused_bf16": fused.launches_bf16,
+            "dcn_v2_bwd_single_term": sum(fn.launches for name, (fn, *_r) in BWD_KERNELS.items()
+                                          if name != "dcn_v2_bwd_fused")}
+
+
+def arch_serve(arch, n_dcn, fwd_shapes):
+    """A bf16 `Detector` whose weights come in as a reference checkpoint of
+    another model (through `load_reference_state_dict`): its outputs must be
+    that model's to the bit. Then the served path, the counters set to 0
+    just before and read just after: `run_batch` on 8 frames of 480x640 and
+    one `run`, the forwards through the DCN blocks counted by shape into
+    `fwd_shapes`. Times: net + decode on a [8, 512, 512, 3] batch,
+    `run_batch` and `run` with their stage split."""
+    cfg = preset("centerpose_dla", arch=arch, input_h=INPUT, input_w=INPUT,
+                 compute_dtype="bfloat16", vis_thresh=0.05)
+    src = create_model(cfg, DEVICE, generator=torch.Generator().manual_seed(0))
+    randomize_offset_convs(src, seed=0)
+    det = Detector(cfg, state_dict=reference_checkpoint(src, arch), device=DEVICE, seed=1)
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, INPUT, INPUT, 3).astype(np.float32)).to(DEVICE)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            a, b = src(x), det.model(x)
+        same = {h: bool(torch.equal(a[h], b[h])) for h in a}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    require(all(same.values()), f"{arch}: a model loaded from its reference checkpoint differs: {same}")
+    del src, a, b, x
+
+    rng = np.random.RandomState(1)
+    frames = [rng.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(SERVE_BATCH + 1)]
+    det.run(frames[0])                                   # warm-up, not counted
+    det.run_batch(frames[1:], timing=True)
+    torch.cuda.synchronize()
+    shapes = Counter()
+    hooks = count_dcn_shapes(det.model, shapes)
+    reset_launches()                                     # ---- the main path starts
+    t0 = time.perf_counter()
+    batch = det.run_batch(frames[1:], timing=True)
+    t1 = time.perf_counter()
+    single = det.run(frames[0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = launches_now()                              # ---- and ends
+    for h in hooks:
+        h.remove()
+    require(sum(shapes.values()) == counts["dcn_v2_fwd_bf16"] and set(shapes) <= set(PRODUCTION_SHAPES),
+            f"{arch}: served DCN passes by shape {dict(shapes)}, launches {counts}")
+    fwd_shapes.update(shapes)
+    require(counts["dcn_v2_fwd_bf16"] == 2 * n_dcn and counts["dcn_v2_fwd"] == 0,
+            f"{arch} served 2 forwards with {counts} launches, expected {n_dcn} bf16 per forward")
+    outs = batch + [single]
+    require(all(np.isfinite(d["bbox"]).all() and np.isfinite(d["score"]) for o in outs for d in o["results"]),
+            f"{arch}: a served box or score is not finite")
+    images = torch.from_numpy(np.random.RandomState(0).randn(
+        SERVE_BATCH, INPUT, INPUT, 3).astype(np.float32)).to(DEVICE)
+    out, dets = forward_decode(det.model, images, cfg)
+    for name, n in cfg.heads.items():
+        require(tuple(out[name].shape) == (SERVE_BATCH, INPUT // 4, INPUT // 4, n), (arch, name, out[name].shape))
+        require(torch.isfinite(out[name].float()).all(), f"{arch}: head {name} not finite")
+    ms = time_ms(lambda: forward_decode(det.model, images, cfg), iters=6)
+    reset_launches()
+    del det, images, out, dets
+    torch.cuda.empty_cache()
+    return {"reference_checkpoint_same_bits": same, "launches": counts,
+            "ms_per_batch_net_decode": ms, "images_per_s": SERVE_BATCH / (ms * 1e-3),
+            "run_batch_ms": (t1 - t0) * 1e3, "run_batch_times_s": batch[0]["times"],
+            "run_ms": (t2 - t1) * 1e3, "run_times_s": single["times"],
+            "detections_per_image": [len(o["results"]) for o in outs]}
+
+
+def arch_train(arch, n_dcn, dtype, fwd_shapes):
+    """`make_train_step` at 512x512, batch 8, float32 (TF32 off) or bf16
+    mixed precision (float32 parameters), on a `render_targets` batch: a
+    warm-up step and ARCH_TRAIN_STEPS timed ones, the counters set to 0 just
+    before and read just after; forward passes through the DCN blocks
+    counted by shape into `fwd_shapes`."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = preset("centerpose_dla", arch=arch, input_h=INPUT, input_w=INPUT, batch_size=TRAIN_BATCH,
+                 compute_dtype=dtype)
+    model = train_model(cfg)
+    state, tx = create_train_state(cfg, model, steps_per_epoch=1000)
+    step = make_train_step(cfg, model, tx)
+    batch = synthetic_batch(cfg, TRAIN_BATCH, seed=5)
+    shapes, bwd = Counter(), Counter()
+    hooks = count_dcn_shapes(model, shapes) + count_dcn_backward_shapes(model, bwd)
+    reset_launches()                                     # ---- the main path starts
+    first = timed_step(step, state, batch)
+    timed = [timed_step(step, state, batch) for _ in range(ARCH_TRAIN_STEPS)]
+    counts = launches_now()                              # ---- and ends
+    for h in hooks:
+        h.remove()
+    steps = 1 + ARCH_TRAIN_STEPS
+    losses = [loss for _, loss in [first] + timed]
+    require(all(np.isfinite(losses)), f"{arch} {dtype}: losses {losses}")
+    require(all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters()),
+            f"{arch} {dtype}: a gradient is not finite")
+    tag = "" if dtype == "float32" else "_bf16"
+    other = "_bf16" if dtype == "float32" else ""
+    require(counts["dcn_v2_fwd" + tag] == counts["dcn_v2_bwd_fused" + tag] == steps * n_dcn
+            and counts["dcn_v2_fwd" + other] == counts["dcn_v2_bwd_fused" + other] == 0
+            and counts["dcn_v2_bwd_single_term"] == 0,
+            f"{arch} {dtype}: {counts} launches in {steps} steps, expected {n_dcn} forward and "
+            f"{n_dcn} fused backward per step")
+    require(sum(shapes.values()) == sum(bwd.values()) == steps * n_dcn and set(shapes) <= set(PRODUCTION_SHAPES),
+            f"{arch} {dtype}: DCN passes by shape {dict(shapes)} / {dict(bwd)}")
+    fwd_shapes.update(shapes)
+    step_ms = sorted(ms for ms, _ in timed)[len(timed) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, tx, step, batch
+    torch.cuda.empty_cache()
+    return {"ms_per_step": step_ms, "ms_per_step_each": [ms for ms, _ in timed], "first_step_ms": first[0],
+            "images_per_s": TRAIN_BATCH / (step_ms * 1e-3), "peak_memory_mb": peak / 2 ** 20,
+            "losses": losses, "launches": counts,
+            "dcn_passes_per_step_by_shape": {"x".join(map(str, k)): v // steps for k, v in shapes.items()}}
+
+
+def phase_archs(fwd_entries, bwd_per_shape, bwd_bf16_per_shape):
+    """res_18, resdcn_18, dlav0_34 and hourglass at 512x512 (`preset(
+    "centerpose_dla", arch=A)`, random weights from seed 0, resdcn's offset
+    convs drawn as `randomize_offset_convs` draws them): served in bf16 and
+    trained in float32 and in bf16 mixed precision at batch 8; resdcn_18
+    launches the forward and the fused backward kernel at each of its three
+    DCN blocks, the others launch none. One line per architecture; then
+    resdcn_18 through the kernels against the plain DCN at 128x128. Returns
+    the forward launches by (H, C, Co) over the phase's main paths and the
+    fused backward launches by type."""
+    fwd_shapes, fused = Counter(), Counter()
+    fwd_ms = {tuple(e["shape"][1:2] + e["shape"][3:]): e for e in fwd_entries}
+    for arch, n_dcn in ARCHS.items():
+        serve = arch_serve(arch, n_dcn, fwd_shapes)
+        shapes = Counter()
+        train = {dt: arch_train(arch, n_dcn, dt, shapes) for dt in ("float32", "bfloat16")}
+        fused["float32"] += train["float32"]["launches"]["dcn_v2_bwd_fused"]
+        fused["bfloat16"] += train["bfloat16"]["launches"]["dcn_v2_bwd_fused_bf16"]
+        fwd_shapes.update(shapes)
+        per_forward = Counter({k: v // (2 * (1 + ARCH_TRAIN_STEPS)) for k, v in shapes.items()})
+        line = {"phase": "archs", "arch": arch, "input": [TRAIN_BATCH, INPUT, INPUT, 3],
+                "head_conv": preset("centerpose_dla", arch=arch).head_conv,
+                "dcn_blocks": n_dcn, "serve_bf16": serve, "train_float32": train["float32"],
+                "train_bf16": train["bfloat16"]}
+        if n_dcn:
+            bwd = {dt: {tuple(r["shape"][1:2] + r["shape"][3:]): r["ms"]
+                        for r in rows["dcn_v2_bwd_fused"]}
+                   for dt, rows in (("float32", bwd_per_shape), ("bfloat16", bwd_bf16_per_shape))}
+            share = {}
+            for dt, key in (("float32", "ms_f32"), ("bfloat16", "ms")):
+                k_ms = sum(n * (fwd_ms[s][key] + bwd[dt][s]) for s, n in per_forward.items())
+                share[dt] = {"dcn_kernels_ms_per_step": k_ms,
+                             "share_of_step": k_ms / train[dt]["ms_per_step"]}
+            line["dcn_kernels_per_step"] = share
+            line["kernels_vs_plain_128"] = kernels_vs_plain(
+                preset("centerpose_dla", arch=arch, input_h=128, input_w=128, batch_size=2))
+        emit(line)
+    return fwd_shapes, fused
+
+
+def phase_kernels_r50():
+    """resdcn_50's first DCN (16x16, C 2048 -> Co 256, batch 8): the forward
+    in float32 and bf16 and the fused backward in float32 and bf16 against
+    the plain versions, at the kernels phases' tolerances, with plans, times
+    and bounds. These calls are not part of any counted path."""
+    hw, c, co = R50_SHAPE
+    out = {"shape": [TRAIN_BATCH, hw, hw, c, co],
+           "plans": {"bf16": plan_of(TRAIN_BATCH, hw, hw, c, co),
+                     "f32": f32_plan_of(TRAIN_BATCH, hw, hw, c, co),
+                     "backward_f32": bwd_plans(TRAIN_BATCH, hw, c, co)["fused"],
+                     "backward_bf16": bwd_plans(TRAIN_BATCH, hw, c, co, torch.bfloat16)["fused"]}}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        args = make_case(80, TRAIN_BATCH, hw, c, co, dtype, "uniform")
+        err, ref_max = check_case(args, dtype)
+        ok = err <= TOL_F32 if dtype == torch.float32 else err <= TOL_BF16_REL * ref_max
+        require(ok, f"resdcn_50 shape {dtype}: forward off by {err} (output max {ref_max})")
+        with torch.no_grad():
+            ms = time_ms(lambda: dcn_v2_forward(*args), iters=10, queued=True)
+            plain_ms = time_ms(lambda: dcn_v2(*args), iters=2, warmup=1)
+        bound, bound_by, _, _ = dcn_bound_ms(TRAIN_BATCH, hw, c, co, dtype)
+        require(bound <= ms, f"resdcn_50 forward {dtype}: {ms} ms under its bound {bound}")
+        dout = make_dout(80, TRAIN_BATCH, hw, co, dtype)
+        ref = dcn_bwd.dcn_v2_grads_plain(*args, dout)
+        got = dcn_bwd.dcn_v2_bwd_fused(*args[:4], dout)
+        tol = (TOL_BWD_REL, TOL_BWD_ABS) if dtype == torch.float32 else (TOL_BWD_BF16["rel"], TOL_BWD_BF16["abs"])
+        bwd_err = {}
+        for name, g, r in zip(GRAD_NAMES, got, ref):
+            e = (g.float() - r.float()).abs().max().item()
+            limit = tol[0] * r.float().abs().max().item() + tol[1]
+            require(torch.isfinite(g).all() and e <= limit, f"resdcn_50 fused backward {dtype}: {name} off by {e}, limit {limit}")
+            bwd_err[name] = e
+        del ref, got
+        bwd_ms = time_ms(lambda: dcn_bwd.dcn_v2_bwd_fused(*args[:4], dout), iters=5, queued=True)
+        bwd_plain_ms = time_ms(lambda: dcn_bwd.dcn_v2_grads_plain(*args, dout), iters=2, warmup=1)
+        b_bound, b_by = bwd_bound_ms(TRAIN_BATCH, hw, c, co, 2, (0, 1, 2, 3), dtype)
+        require(b_bound <= bwd_ms, f"resdcn_50 fused backward {dtype}: {bwd_ms} ms under its bound {b_bound}")
+        out[tag] = {"forward": {"max_abs_err": err, "output_max": ref_max, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bound_by": bound_by},
+                    "fused_backward": {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                                       "bound_ms": b_bound, "bound_by": b_by}}
+        del args, dout
+    torch.cuda.empty_cache()
+    reset_launches()
+    emit({"phase": "kernels_r50", "arch": "resdcn_50", "what": "first DCN at 512x512, K = 9 x 2048",
+          "tolerance": {"forward_f32_abs": TOL_F32, "forward_bf16_rel_to_output_max": TOL_BF16_REL,
+                        "backward_f32": [TOL_BWD_REL, TOL_BWD_ABS],
+                        "backward_bf16": [TOL_BWD_BF16["rel"], TOL_BWD_BF16["abs"]]},
+          "totals": "not part of the 16-call totals", **out})
+
+
 def backward_entries(bwd_per_shape, per_forward, counts, dtype="float32"):
     """One entry per backward kernel (a bf16 body's named with `_bf16`):
     error the worst over the 7 shapes, times and bound summed over the 16
@@ -2004,6 +2275,8 @@ def main() -> int:
     train_fwd_launches, train_counts = phase_train(per_forward, entries, bwd_per_shape)
     train_bf16_counts = phase_train_bf16(per_forward)
     phase_train_cli()
+    phase_kernels_r50()
+    archs_fwd, archs_fused = phase_archs(entries, bwd_per_shape, bwd_bf16_per_shape)
 
     # All counts are this run's: one forward of the model phase, the serve
     # phase's four forwards (3 `run` + 1 `run_batch`), the train phase's steps.
@@ -2019,14 +2292,22 @@ def main() -> int:
         require(e["launches_track"] > 0, f"the tracking path never launched the kernel at {e['shape']}")
         e["launches_train"] = train_fwd_launches.get((hw, c, co), 0)
         require(e["launches_train"] > 0, f"the training path never launched the forward kernel at {e['shape']}")
+        e["launches_archs"] = archs_fwd.get((hw, c, co), 0)
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
     require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
             "training launches by shape do not add up to the counter")
     require(sum(e["launches_track"] for e in entries) == track_launches,
             "tracking launches by shape do not add up to the counter")
+    require(sum(e["launches_archs"] for e in entries) == sum(archs_fwd.values()) > 0,
+            "the archs phase's forward launches are not all at production shapes")
+    fused_entries = {dt: backward_entries(rows, per_forward, counts, dt) for dt, rows, counts in (
+        ("float32", bwd_per_shape, train_counts), ("bfloat16", bwd_bf16_per_shape, train_bf16_counts))}
+    for dt, rows in fused_entries.items():
+        entry = next(e for e in rows if e["name"].startswith("dcn_v2_bwd_fused"))
+        entry["launches_archs"] = archs_fused[dt]
+        require(entry["launches_archs"] > 0, f"the archs phase never launched the fused backward ({dt})")
     summary = {"kernels": entries + [row_kernel_entry(entries, per_forward, track_launches)]
-               + backward_entries(bwd_per_shape, per_forward, train_counts)
-               + backward_entries(bwd_bf16_per_shape, per_forward, train_bf16_counts, "bfloat16")}
+               + fused_entries["float32"] + fused_entries["bfloat16"]}
     # A kernel faster than its bound would mean a wrong bound, not a fast
     # kernel: every entry's time, and the float32 times (B=8, B=1) of the
     # forward's entries.

@@ -265,13 +265,30 @@ def test_dla_34_matches_jax():
 
 
 def test_unported_paths_raise():
-    for arch in ("dlav0_34", "res_18", "resdcn_18", "hourglass"):
-        with pytest.raises(NotImplementedError):
-            create_model(preset("centerpose", arch=arch), device="cpu")
+    """What is still not ported raises: the dlav1 + tracking GRU routing; an
+    arch the factory does not know is refused."""
     with pytest.raises(NotImplementedError):      # dlav1 + tracking GRU routing
         create_model(preset("centerpose", tracking_task=True), device="cpu")
-    with pytest.raises(ValueError):
-        create_model(preset("centerpose", arch="nope_1"), device="cpu")
+    for arch in ("nope_1", "res_19", "res_x", "resdcn"):
+        with pytest.raises(ValueError):
+            create_model(preset("centerpose", arch=arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch,size,module", [
+    ("dla_34", 64, "CenterPoseNet"), ("dlav1_34", 64, "CenterPoseNet"),
+    ("dlav0_34", 64, "CenterPoseNetV0"), ("res_34", 64, "PoseResNet"),
+    ("resdcn_50", 64, "PoseResNet"), ("hourglass", 128, "HourglassNet"),
+])
+def test_every_family_builds_on_the_cpu(arch, size, module):
+    """All six architecture families of the JAX factory build, seeded, on
+    the CPU, and map an NHWC batch to NHWC heads at stride 4."""
+    cfg = preset("centerpose_dla", arch=arch, input_h=size, input_w=size)
+    model = create_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    assert type(model).__name__ == module and not model.training
+    with torch.no_grad():
+        out = model(torch.zeros(1, size, size, 3))
+    assert list(out) == list(cfg.heads)
+    assert all(tuple(v.shape) == (1, size // 4, size // 4, cfg.heads[k]) for k, v in out.items())
 
 
 def test_create_model_is_seeded_and_leaves_global_rng_alone():

@@ -247,8 +247,8 @@ def test_detector_refuses_what_is_not_ported():
     # (an idea the reference never tried) is not ported.
     with pytest.raises(NotImplementedError):
         Detector(preset("centerpose", tracking_task=True, input_h=64, input_w=64), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Detector(preset("centerpose", arch="res_18", input_h=64, input_w=64), device="cpu")
+    with pytest.raises(ValueError):           # every arch of the JAX factory is ported
+        Detector(preset("centerpose", arch="res_19", input_h=64, input_w=64), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(Exception):     # asked for "cuda" without one: no CPU fallback
             Detector(preset("centerpose_dla", input_h=64, input_w=64))
@@ -275,7 +275,8 @@ def test_port_imports_no_jax():
     for module in ("tracking/kalman.py", "tracking/render.py", "tracking/tracker.py",
                    "tracking/tracker_baseline.py", "data/video.py", "demo.py",
                    "data/synthetic.py", "data/dataset.py", "data/loader.py", "data/tfrecord.py",
-                   "utils/checkpoint.py", "utils/logger.py", "utils/tbevents.py", "train.py"):
+                   "utils/checkpoint.py", "utils/logger.py", "utils/tbevents.py", "train.py",
+                   "models/resnet.py", "models/hourglass.py", "training/oracle.py"):
         assert f"centerpose_tpu_torch/{module}" in names, module
     banned = {"jax", "jaxlib", "flax", "centerpose_tpu", "optax", "orbax"}
     for path in files:

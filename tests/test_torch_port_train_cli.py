@@ -93,6 +93,19 @@ def test_cli_load_model_initialises_by_name(data, tmp_path, monkeypatch):
     assert f"partial-init from {src}: " in log and " 0 kept at init" in log
 
 
+def test_cli_trains_res_18(data, tmp_path, monkeypatch):
+    """`--arch res_18`: one epoch of 2 steps of the msra ResNet (under the
+    JAX CLI's preset, as every arch but dlav1 shares it), validated."""
+    monkeypatch.chdir(tmp_path)
+    out = train.main(_argv(data, "--arch", "res_18", "--num_epochs", "1", "--exp_id", "res",
+                           "--save_intervals", "0"))
+    assert out["exp_dir"] == os.path.join("exp", "res_18", "res") and out["step"] == 2
+    epoch = out["epochs"][0]
+    assert np.isfinite(epoch["train"]["loss"]) and np.isfinite(epoch["val"]["loss"])
+    saved = torch.load(tmp_path / "exp" / "res_18" / "res" / "ckpt" / "2" / "checkpoint.pt", weights_only=True)
+    assert "deconv_layers.0.weight" in saved["state_dict"]
+
+
 @pytest.mark.parametrize("flags, item", [
     (["--tracking_task"], "queue A item 5"),
     (["--debug", "1"], "queue A item 7"),

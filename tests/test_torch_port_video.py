@@ -319,3 +319,24 @@ def test_demo_tracking_writes_track_ids(tmp_path):
         assert set(rec["times"]) >= {"pre", "net", "merge", "pnp", "track", "tot"}
         assert rec["detections"] and all("tracking_id" in d for d in rec["detections"])
     assert "track" in proc.stdout
+
+
+def test_demo_resdcn_18_on_one_image(tmp_path):
+    """`demo.main(--arch resdcn_18 --device cpu --input_res 128)` on one
+    image with `--load_model` a reference-style checkpoint (`{epoch,
+    state_dict}`, `module.` prefixes; the heatmap bias raised so that random
+    weights detect): one JSON with detections and the stage times."""
+    from PIL import Image
+
+    from centerpose_tpu_torch import demo
+
+    Image.fromarray(_video(1)[0]).save(tmp_path / "img.png")
+    cfg = preset("centerpose_dla", arch="resdcn_18", input_h=128, input_w=128)
+    sd = create_model(cfg, device="cpu").state_dict()
+    sd["hm.2.bias"].fill_(1.0)
+    torch.save({"epoch": 1, "state_dict": {"module." + k: v for k, v in sd.items()}}, tmp_path / "m.pth")
+    assert demo.main(["--device", "cpu", "--arch", "resdcn_18", "--input_res", "128",
+                      "--demo", str(tmp_path / "img.png"), "--out_dir", str(tmp_path / "out"),
+                      "--load_model", str(tmp_path / "m.pth")]) == 0
+    rec = json.loads((tmp_path / "out" / "img.json").read_text())
+    assert rec["detections"] and set(rec["times"]) >= {"pre", "net", "pnp", "tot"}
