@@ -17,7 +17,9 @@ Only the feature keys the evaluator consumes are surfaced (image, 2D/3D points,
 instance counts, scales, poses, visibility, camera matrices, plane).
 
 The PyTorch package's own copy of `centerpose_tpu/data/tfrecord.py` (the
-TensorBoard writer `utils/tbevents.py` frames its records with it).
+TensorBoard writer `utils/tbevents.py` frames its records with it), and of
+`scripts/synth_to_tfrecords.py`'s packing of DOPE frames into records
+(`pack_dope_video`, `pack_dope_dataset`).
 """
 
 from __future__ import annotations
@@ -204,7 +206,7 @@ def _len_field(num: int, payload: bytes) -> bytes:
 def make_example(features: Dict[str, tuple]) -> bytes:
     """Serialize {key: (kind, values)} into tf.Example bytes — the writer-side
     counterpart of parse_example (kind ∈ bytes|float|int64). Used by the
-    DOPE→tfrecord converter (scripts/synth_to_tfrecords.py) and test fixtures."""
+    DOPE→tfrecord packer (`pack_dope_video`) and test fixtures."""
     entries = b""
     for key, (kind, values) in features.items():
         if kind == "bytes":
@@ -312,3 +314,80 @@ def parse_objectron_example(buf: bytes) -> Dict[str, object]:
     if pc is not None and pn is not None:
         out["plane"] = (pc, pn)
     return out
+
+
+# --------------------------------------------------------- DOPE -> tfrecord
+def pack_dope_video(vdir: str, out_path: str, category: str) -> int:
+    """One tfrecord of a DOPE video directory's png + json frames, in order,
+    in the Objectron layout `parse_objectron_example` reads (the records of
+    `scripts/synth_to_tfrecords.py`, byte for byte): `point_2d` as [x / width,
+    y / height, 1] per keypoint, points, poses and plane in the OpenGL
+    camera frame, `camera/intrinsics` stored transposed as Objectron's are
+    (the reader swaps fx/fy and cx/cy back). Returns the number of frames."""
+    import glob
+    import json
+    import os
+
+    from scipy.spatial.transform import Rotation
+
+    payloads = []
+    vid = os.path.basename(os.path.normpath(vdir))
+    for idx, jpath in enumerate(sorted(glob.glob(os.path.join(vdir, "*.json")))):
+        img_path = os.path.splitext(jpath)[0] + ".png"
+        if not os.path.exists(img_path):
+            continue
+        with open(jpath) as f:
+            ann = json.load(f)
+        with open(img_path, "rb") as f:
+            img_bytes = f.read()
+        cam = ann["camera_data"]
+        w, h, intr = cam["width"], cam["height"], cam["intrinsics"]
+        objs = ann.get("objects", [])
+        p2, p3, scales, trans, rots = [], [], [], [], []
+        for o in objs:
+            pc = np.asarray(o["projected_cuboid"], np.float64)[:9]
+            p2.extend([pc[i, 0] / w, pc[i, 1] / h, 1.0] for i in range(9))
+            p3.extend(np.asarray(o["keypoints_3d"], np.float64)[:9].tolist())
+            scales.extend(np.abs(np.asarray(o["scale"], np.float64)).tolist())
+            trans.extend(o["location"])
+            rots.extend(Rotation.from_quat(o["quaternion_xyzw"]).as_matrix().ravel().tolist())
+        features = {
+            "image/encoded": ("bytes", [img_bytes]),
+            "image/filename": ("bytes", [f"{category}/{vid}/{idx}".encode()]),
+            "image/id": ("int64", [idx]),
+            "image/width": ("int64", [w]),
+            "image/height": ("int64", [h]),
+            "instance_num": ("int64", [len(objs)]),
+            "point_num": ("int64", [9] * len(objs)),
+            "point_2d": ("float", np.asarray(p2, np.float64).ravel().tolist()),
+            "point_3d": ("float", np.asarray(p3, np.float64).ravel().tolist()),
+            "object/scale": ("float", scales),
+            "object/translation": ("float", trans),
+            "object/orientation": ("float", rots),
+            "object/visibility": ("float", [1.0] * len(objs)),
+            "camera/intrinsics": ("float", [intr["fy"], 0.0, intr["cy"], 0.0, intr["fx"],
+                                            intr["cx"], 0.0, 0.0, 1.0]),
+        }
+        if "camera_projection_matrix" in cam:
+            features["camera/projection"] = (
+                "float", np.asarray(cam["camera_projection_matrix"]).ravel().tolist())
+        if "AR_data" in ann:
+            features["plane/center"] = ("float", ann["AR_data"]["plane_center"])
+            features["plane/normal"] = ("float", ann["AR_data"]["plane_normal"])
+        payloads.append(make_example(features))
+    write_tfrecord(out_path, payloads)
+    return len(payloads)
+
+
+def pack_dope_dataset(data_dir: str, out_dir: str, category: str) -> List[str]:
+    """`pack_dope_video` for every video directory of a DOPE tree:
+    `<out_dir>/<video>.tfrecord` each; returns their paths in order."""
+    import glob
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for vdir in sorted(d for d in glob.glob(os.path.join(data_dir, "*")) if os.path.isdir(d)):
+        paths.append(os.path.join(out_dir, f"{os.path.basename(vdir)}.tfrecord"))
+        pack_dope_video(vdir, paths[-1], category)
+    return paths

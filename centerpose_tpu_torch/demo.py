@@ -14,8 +14,11 @@ Runs on the GPU (`--device cuda`, the default) unless asked for the CPU.
 `--arch` takes every architecture of the factory (dla_34, dlav1_34,
 dlav0_34, res_XX, resdcn_XX, hourglass). `--load_model` takes a reference
 `.pth` checkpoint (`{epoch, state_dict}` or a bare state dict of the
-reference's names, `module.` prefixes and a dlav0 trunk's `fc` allowed; the
-JAX package's orbax checkpoints belong to that package). Every arch is built
+reference's names, `module.` prefixes and a dlav0 trunk's `fc` allowed) or a
+checkpoint directory of this package's `train.py` (`ckpt/`, `best/`,
+`epoch_N/` or one `<step>/` under them): `utils/checkpoint.py::
+load_for_inference`. The JAX package's orbax checkpoints belong to that
+package. Every arch is built
 at the preset's head_conv of 256, so a reference res/resdcn checkpoint, whose
 heads are 64 wide, does not load. Not ported: `--debug`
 canvases and the webcam reader.
@@ -38,7 +41,8 @@ def parse_args(argv=None):
                    help="image, folder of images, video file, or frame folder (with --tracking)")
     p.add_argument("--arch", default="dlav1_34")
     p.add_argument("--c", dest="category", default="shoe")
-    p.add_argument("--load_model", default="", help="reference .pth checkpoint or state dict")
+    p.add_argument("--load_model", default="",
+                   help="reference .pth checkpoint or state dict, or a train.py checkpoint directory")
     p.add_argument("--tracking", action="store_true",
                    help="CenterPoseTrack: dla_34 tracking model + tracker over the frames in order")
     p.add_argument("--vis_thresh", type=float, default=0.3)
@@ -67,8 +71,6 @@ def parse_args(argv=None):
 
 
 def load_detector(args):
-    import torch
-
     from centerpose_tpu_torch.config import preset
     from centerpose_tpu_torch.inference.detector import Detector
 
@@ -87,10 +89,7 @@ def load_detector(args):
         input_w=args.input_res,
         compute_dtype=args.compute_dtype,
     )
-    # A reference checkpoint ({epoch, state_dict, ...} or a bare state_dict):
-    # `Detector` loads it by the reference's rules (`load_reference_state_dict`).
-    ckpt = torch.load(args.load_model, map_location="cpu") if args.load_model else None
-    return Detector(cfg, state_dict=ckpt, device=args.device)
+    return Detector(cfg, device=args.device, load_model=args.load_model)
 
 
 def _frames(args):

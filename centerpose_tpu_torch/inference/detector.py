@@ -60,6 +60,7 @@ from centerpose_tpu_torch.tracking.render import (
     render_maps,
     render_previous_heatmaps,
 )
+from centerpose_tpu_torch.utils.checkpoint import load_for_inference
 
 # Post-process std scale factor (src/lib/utils/post_process.py:15).
 _STD_COEFFICIENT = 0.32
@@ -130,7 +131,9 @@ class Detector:
 
     `state_dict`: weights to load, a reference checkpoint or state dict of
     the reference's names (`models/convert.py::load_reference_state_dict`);
-    without it the weights are random from `seed`.
+    `load_model`: a path to load them from, a reference `.pth` or a
+    checkpoint directory of `train.py` (`utils/checkpoint.py::
+    load_for_inference`); without either the weights are random from `seed`.
 
     Setting `cfg` on a tracking detector also sets the tracker's (the JAX
     package's detector leaves the tracker on the old config; its
@@ -142,6 +145,7 @@ class Detector:
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
+        load_model: str = "",
     ):
         self.device = torch.device(device)
         self.tracker = None
@@ -161,6 +165,8 @@ class Detector:
         )
         if state_dict is not None:
             load_reference_state_dict(self.model, state_dict)
+        if load_model:
+            load_for_inference(load_model, self.model)
         self.mean = np.array(DATA_MEAN, np.float32).reshape(1, 1, 3)
         self.std = np.array(DATA_STD, np.float32).reshape(1, 1, 3)
 

@@ -20,7 +20,9 @@ manager lays it out (`train.py` writes roots `ckpt/`, `best/` and
 A file is written beside its final name and renamed, so a crash leaves no
 half-written checkpoint. The JAX package's orbax checkpoints are not readable
 here (that needs jax and orbax, which this package does not import);
-`load_partial` reads this package's checkpoints.
+`load_partial` reads this package's checkpoints. `load_for_inference` loads
+the weights that serving and evaluation need from either kind of file the
+package reads: a reference `.pth` or one of these directories.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import os
 from typing import Optional, Tuple
 
 import torch
+
+from centerpose_tpu_torch.models.convert import load_reference_state_dict
 
 _FILE = "checkpoint.pt"
 
@@ -108,3 +112,23 @@ def load_partial(directory: str, model: torch.nn.Module,
                           f"{tuple(val.shape)} vs {tuple(dst.shape)}, keeping init")
                 skipped += 1
     return loaded, skipped
+
+
+def load_for_inference(path: str, model: torch.nn.Module) -> None:
+    """Load weights into `model`, in place, for serving or evaluation (the
+    JAX package's `demo.py::_load_variables`). `path` is either
+    - a reference checkpoint file (`{epoch, state_dict, ...}` or a bare
+      state dict, `.pth`), read by `models/convert.py::
+      load_reference_state_dict`; or
+    - a directory this package's `train.py` wrote: a root (`ckpt/`,
+      `best/`, `epoch_N/`), whose latest step is read, or one step's
+      directory `<root>/<step>`. Its parameters and BatchNorm buffers are
+      loaded; the optimizer is not read."""
+    step_file = os.path.join(path, _FILE)
+    if os.path.isfile(step_file):                       # <root>/<step>
+        ckpt = torch.load(step_file, map_location="cpu", weights_only=True)
+    elif os.path.isdir(path):                           # a root: its latest step
+        ckpt = _read(path, None, "cpu")
+    else:
+        ckpt = torch.load(path, map_location="cpu")
+    load_reference_state_dict(model, ckpt)

@@ -7,9 +7,10 @@ drives `centerpose_tpu_torch`'s serving path and its training paths (float32,
 bf16 mixed precision, and the training CLI on the package's own synthetic
 data) at the full width of the flagship model (dlav1_34 at 512x512, random
 weights from seed 0), its video-tracking path with the CenterPoseTrack
-model (dla_34 at 512x512, one frame per call), and the other architectures
-(res_18, resdcn_18, dlav0_34, hourglass at 512x512, served and trained)
-through the entry points a user calls, builds the CUDA
+model (dla_34 at 512x512, one frame per call), its evaluation CLI (AP of
+both models over generated frames, and the validation loss), and the other
+architectures (res_18, resdcn_18, dlav0_34, hourglass at 512x512, served
+and trained) through the entry points a user calls, builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and shows that every path really went through
 them. Every phase prints one JSON line; a phase
@@ -152,6 +153,22 @@ Phases:
            `--resume` for one more. The step 2 -> 4, finite losses,
            checkpoints, bf16 launches per step and per validation batch; ms
            per step and the share spent waiting for the loader.
+  evaluate `python -m centerpose_tpu_torch.evaluate` in process: the
+           package's generator writes 2 videos of 8 frames of 640x480 into a
+           temporary directory (and `data/tfrecord.py::pack_dope_dataset`
+           packs them); at 512x512 float32 with a fresh process's TF32
+           switches, `--mode metric` on dlav1_34 (a `.pth` of seed 0 with
+           offset convs drawn), `--tracking` on the dla_34 tracking model
+           (`track_weights`), both at vis_thresh 0.05 so that random weights
+           give detections, PnP, matching and AP work; the tfrecords with
+           `--n_proc 2` (spawned workers on the card), whose report must
+           equal the in-process one; `--mode loss` on a `save_checkpoint`
+           directory. Counters set to 0 before each run and read after, DCN
+           calls counted by shape: 16 float32 forward launches per image
+           and per loss batch. images/s and ms per image split into
+           `Detector.run` and the evaluator (`evaluate_image`; `report` +
+           `report_dict`), num_gt / num_pred, AP at the report points,
+           losses, ms per batch.
   kernels_r50
            resdcn_50's first DCN at 512x512 (16x16, C 2048 -> Co 256, K = 9 x
            2048, a K no DLA shape has) at batch 8: the forward in float32 and
@@ -242,6 +259,9 @@ from centerpose_tpu_torch.training.trainer import (  # noqa: E402
 )
 
 DEVICE = torch.device("cuda")
+# A fresh process's TF32 switches (cuDNN's convolutions, matmuls), read before
+# the kernels phase turns them off: what the CLIs and their workers run with.
+TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 # `--out DIR`: also write the phases' lines and the kernel table to
 # DIR/chip_smoke_kernels.json.
 OUT_DIR = sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv[1:-1] else None
@@ -1111,6 +1131,17 @@ def count_dcn_shapes(model, counter: Counter):
     return [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, layers.DCN)]
 
 
+def count_all_dcn_shapes(counter: Counter):
+    """One global forward hook that counts the DCN calls of every model of
+    this process by (H, C, Co), those built after it too (the CLIs build
+    their own); the caller removes it."""
+    def hook(mod, inputs, output):
+        if isinstance(mod, layers.DCN):
+            x = inputs[0]
+            counter[(x.shape[2], x.shape[1], output.shape[1])] += 1
+    return torch.nn.modules.module.register_module_forward_hook(hook)
+
+
 def forward_decode(model, images, cfg):
     with torch.no_grad():
         out = model(images)
@@ -1940,6 +1971,186 @@ def phase_train_cli():
     })
 
 
+# ---------------------------------------------------------------- evaluate
+EVAL_VIDEOS, EVAL_FRAMES = 2, 8            # 640x480 frames from the package's generator
+EVAL_VIS_THRESH = 0.05                     # random weights score ~0.1: detections, PnP and matching
+
+
+class MethodTimer:
+    """Wall seconds of every call of some methods, by wrapping them on their
+    class for the duration of a `with` block (the library carries no timers)."""
+
+    def __init__(self, **targets):
+        self.targets = targets                          # label -> (class, method name)
+        self.times = {label: [] for label in targets}
+
+    def __enter__(self):
+        self.saved = {}
+        for label, (cls, name) in self.targets.items():
+            fn = getattr(cls, name)
+            self.saved[label] = fn
+
+            def timed(*args, _fn=fn, _label=label, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.times[_label].append(time.perf_counter() - t0)
+
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (cls, name) in self.targets.items():
+            setattr(cls, name, self.saved[label])
+
+
+def phase_evaluate():
+    """`python -m centerpose_tpu_torch.evaluate` in process, on the card
+    (`main(argv)`): the package's generator writes 2 videos of 8 frames of
+    640x480 (the camera orbiting fixed objects) into a temporary directory,
+    packed as tfrecords too. Four runs at 512x512 float32: `--mode metric`
+    on dlav1_34 (weights from seed 0, DCN offset convs drawn as the model
+    phase draws them, loaded from a `.pth`), the same with `--tracking` on
+    the dla_34 tracking model (`track_weights`), the tfrecords with `--n_proc 2` (two spawned
+    workers, each with its own `Detector` on the card), and `--mode loss` on
+    a checkpoint of the image model's weights written by `save_checkpoint`.
+    The runs use a fresh process's TF32 switches (`TF32_DEFAULTS`), as the
+    CLI and its spawned workers do, and restore the script's after. The
+    launch counters are set to 0 just before each run and read just after,
+    and every DCN call of the run is counted by shape (`count_all_dcn_shapes`):
+    16 float32 forward launches per image (and per loss batch), the shapes
+    those of one forward of the model phase, the shape counts adding up to
+    the launch counter. Required: every GT object counted, detections
+    matched and scored (num_pred > 0, finite APs), the workers' report on
+    the tfrecords equal to the in-process report on the same frames and
+    weights, finite losses. Prints images/s and ms per image split into
+    `Detector.run` and the evaluator (`evaluate_image`: matching, IoU,
+    metrics; `report_dict`: AP). Returns the runs' DCN calls by shape: the
+    image model's (image and loss runs) and the tracking model's."""
+    import tempfile
+
+    from centerpose_tpu_torch import evaluate as evaluate_cli
+    from centerpose_tpu_torch.data.synthetic import generate_dataset
+    from centerpose_tpu_torch.data.tfrecord import pack_dope_dataset
+    from centerpose_tpu_torch.evaluation.evaluator import Evaluator
+    from centerpose_tpu_torch.utils.checkpoint import save_checkpoint
+
+    torch.cuda.empty_cache()
+    n_images = EVAL_VIDEOS * EVAL_FRAMES
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        t0 = time.time()
+        data = os.path.join(tmp, "frames")
+        frames = generate_dataset(data, n_videos=EVAL_VIDEOS, frames_per_video=EVAL_FRAMES, seed=0,
+                                  width=640, height=480, video_motion=True)
+        records = pack_dope_dataset(data, os.path.join(tmp, "tfrecords"), "shoe")
+        n_gt = 0
+        for png in frames:
+            with open(png[:-4] + ".json") as fh:
+                n_gt += len(json.load(fh)["objects"])
+        cfg = preset("centerpose", input_h=INPUT, input_w=INPUT)
+        model = create_model(cfg, "cpu", generator=torch.Generator().manual_seed(0))
+        randomize_offset_convs(model, 0)
+        torch.save(model.state_dict(), os.path.join(tmp, "image.pth"))
+        state, _ = create_train_state(cfg, model)
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, state, 1)
+        tcfg = preset("centerpose_track", input_h=INPUT, input_w=INPUT)
+        tmodel = create_model(tcfg, "cpu", generator=torch.Generator().manual_seed(0))
+        track_weights(tmodel, tcfg, 640, seed=0)
+        torch.save(tmodel.state_dict(), os.path.join(tmp, "track.pth"))
+        setup_s = time.time() - t0
+
+        runs = {}
+        common = ["--data_dir", data, "--input_res", str(INPUT), "--c", "shoe"]
+        script_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS
+        for label, argv in (
+            ("image", [*common, "--load_model", os.path.join(tmp, "image.pth"),
+                       "--vis_thresh", str(EVAL_VIS_THRESH)]),
+            ("tracking", [*common, "--tracking", "--load_model", os.path.join(tmp, "track.pth"),
+                          "--vis_thresh", str(EVAL_VIS_THRESH)]),
+            ("tfrecords_n_proc_2", ["--tfrecords", os.path.join(tmp, "tfrecords", "*.tfrecord"),
+                                    "--input_res", str(INPUT), "--n_proc", "2",
+                                    "--load_model", os.path.join(tmp, "image.pth"),
+                                    "--vis_thresh", str(EVAL_VIS_THRESH),
+                                    "--report_json", os.path.join(tmp, "n_proc.json")]),
+            ("loss", ["--mode", "loss", *common, "--load_model", ckpt]),
+        ):
+            shapes: Counter = Counter()
+            hook = count_all_dcn_shapes(shapes)
+            try:
+                with MethodTimer(detector=(Detector, "run"), match=(Evaluator, "evaluate_image"),
+                                 report=(Evaluator, "report"), report_dict=(Evaluator, "report_dict")) as timer:
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    out = evaluate_cli.main(argv)                  # ---- the path
+                    seconds = time.perf_counter() - t0
+                    launches = dcn_v2_forward.launches - dcn_v2_forward.launches_bf16   # ---- ends
+            finally:
+                hook.remove()
+            require(sum(shapes.values()) == launches,
+                    f"evaluate {label}: DCN calls counted by shape {dict(shapes)} differ from the "
+                    f"launch counter {launches}")
+            runs[label] = {"out": out, "seconds": seconds, "launches": launches, "times": timer.times,
+                           "shapes": shapes}
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+
+    lines = {}
+    for label in ("image", "tracking", "tfrecords_n_proc_2"):
+        run, rep = runs[label], runs[label]["out"]["report"]
+        fams = rep["families"]
+        require(rep["num_gt"] == n_gt, f"evaluate {label}: num_gt {rep['num_gt']}, {n_gt} GT objects written")
+        require(all(np.isfinite(f["curve"]).all() for f in fams.values()), f"evaluate {label}: AP not finite")
+        det = run["times"]["detector"]
+        match_s = sum(run["times"]["match"])
+        ap_s = sum(run["times"]["report"]) + sum(run["times"]["report_dict"])
+        lines[label] = {
+            "seconds": run["seconds"], "images_per_s": n_images / run["seconds"],
+            "ms_per_image": 1e3 * run["seconds"] / n_images,
+            "launches": run["launches"], "launches_per_image": run["launches"] / n_images,
+            "num_gt": rep["num_gt"], "num_pred": rep["num_pred"],
+            "ap": {f: v["ap"] for f, v in fams.items()}, "consistency": rep.get("consistency"),
+        }
+        if det:                                     # in this process (not the n_proc workers)
+            lines[label].update({
+                "detector_ms_per_image": 1e3 * sum(det) / len(det), "detector_calls": len(det),
+                "detector_ms_first": 1e3 * det[0], "detector_ms_median": 1e3 * float(np.median(det)),
+                "evaluator_ms_per_image": 1e3 * (match_s + ap_s) / n_images,
+                "evaluate_image_ms_per_image": 1e3 * match_s / n_images, "ap_report_ms": 1e3 * ap_s,
+            })
+    for label in ("image", "tracking"):
+        line = lines[label]
+        require(line.get("detector_calls") == n_images,
+                f"evaluate {label}: {line.get('detector_calls')} Detector.run calls for {n_images} images")
+        require(line["launches"] == 16 * n_images,
+                f"evaluate {label}: {line['launches']} float32 DCN launches for {n_images} images")
+        require(line["num_pred"] > 0, f"evaluate {label}: no detection reached the evaluator")
+    require(runs["tfrecords_n_proc_2"]["launches"] == 0, "the n_proc workers' launches reached this process")
+    same = (json.dumps(runs["tfrecords_n_proc_2"]["out"]["report"], sort_keys=True)
+            == json.dumps(runs["image"]["out"]["report"], sort_keys=True))
+    require(same, "evaluate: the n_proc workers' report on the tfrecords "
+            f"({lines['tfrecords_n_proc_2']['num_pred']} boxes) is not the in-process report on "
+            f"the same frames ({lines['image']['num_pred']} boxes)")
+    loss = runs["loss"]["out"]["runs"][0]
+    require(loss["samples"] == n_images and all(np.isfinite(list(loss["losses"].values()))),
+            f"evaluate loss: {loss['samples']} samples, losses {loss['losses']}")
+    n_batches = len(loss["ms_per_batch"])
+    require(runs["loss"]["launches"] == 16 * n_batches,
+            f"evaluate loss: {runs['loss']['launches']} float32 DCN launches for {n_batches} batches")
+    emit({
+        "phase": "evaluate", "config": "dlav1_34 (tracking: dla_34) 512x512 float32",
+        "data": {"frames": n_images, "videos": EVAL_VIDEOS, "size": [640, 480], "gt_objects": n_gt,
+                 "tfrecords": len(records), "setup_s": setup_s},
+        "vis_thresh": EVAL_VIS_THRESH,
+        **lines,
+        "loss": {"losses": loss["losses"], "samples": loss["samples"], "ms_per_batch": loss["ms_per_batch"],
+                 "seconds": runs["loss"]["seconds"], "launches": runs["loss"]["launches"]},
+    })
+    return {"image": runs["image"]["shapes"] + runs["loss"]["shapes"],
+            "tracking": runs["tracking"]["shapes"]}
+
+
 # ------------------------------------------------------------------- archs
 # The other architectures of the factory, at full width and depth (512x512,
 # the JAX preset's head_conv 256): their DCN blocks per forward (resdcn's
@@ -2275,6 +2486,7 @@ def main() -> int:
     train_fwd_launches, train_counts = phase_train(per_forward, entries, bwd_per_shape)
     train_bf16_counts = phase_train_bf16(per_forward)
     phase_train_cli()
+    eval_counts = phase_evaluate()
     phase_kernels_r50()
     archs_fwd, archs_fused = phase_archs(entries, bwd_per_shape, bwd_bf16_per_shape)
 
@@ -2293,6 +2505,8 @@ def main() -> int:
         e["launches_train"] = train_fwd_launches.get((hw, c, co), 0)
         require(e["launches_train"] > 0, f"the training path never launched the forward kernel at {e['shape']}")
         e["launches_archs"] = archs_fwd.get((hw, c, co), 0)
+        e["launches_evaluate"] = eval_counts["image"].get((hw, c, co), 0)
+        require(e["launches_evaluate"] > 0, f"the evaluate path never launched the kernel at {e['shape']}")
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
     require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
             "training launches by shape do not add up to the counter")
@@ -2300,13 +2514,22 @@ def main() -> int:
             "tracking launches by shape do not add up to the counter")
     require(sum(e["launches_archs"] for e in entries) == sum(archs_fwd.values()) > 0,
             "the archs phase's forward launches are not all at production shapes")
+    require(sum(e["launches_evaluate"] for e in entries) == sum(eval_counts["image"].values()),
+            "the evaluate phase's image-model launches are not all at production shapes")
     fused_entries = {dt: backward_entries(rows, per_forward, counts, dt) for dt, rows, counts in (
         ("float32", bwd_per_shape, train_counts), ("bfloat16", bwd_bf16_per_shape, train_bf16_counts))}
     for dt, rows in fused_entries.items():
         entry = next(e for e in rows if e["name"].startswith("dcn_v2_bwd_fused"))
         entry["launches_archs"] = archs_fused[dt]
         require(entry["launches_archs"] > 0, f"the archs phase never launched the fused backward ({dt})")
-    summary = {"kernels": entries + [row_kernel_entry(entries, per_forward, track_launches)]
+    row_entry = row_kernel_entry(entries, per_forward, track_launches)
+    for row in row_entry["per_shape"]:
+        _, hw, _, c, co = row["shape"]
+        row["launches_evaluate"] = eval_counts["tracking"].get((hw, c, co), 0)
+    row_entry["launches_evaluate"] = sum(row["launches_evaluate"] for row in row_entry["per_shape"])
+    require(row_entry["launches_evaluate"] == sum(eval_counts["tracking"].values()) > 0,
+            "the evaluate phase's tracking launches are not all at production shapes")
+    summary = {"kernels": entries + [row_entry]
                + fused_entries["float32"] + fused_entries["bfloat16"]}
     # A kernel faster than its bound would mean a wrong bound, not a fast
     # kernel: every entry's time, and the float32 times (B=8, B=1) of the

@@ -276,8 +276,15 @@ def test_port_imports_no_jax():
                    "tracking/tracker_baseline.py", "data/video.py", "demo.py",
                    "data/synthetic.py", "data/dataset.py", "data/loader.py", "data/tfrecord.py",
                    "utils/checkpoint.py", "utils/logger.py", "utils/tbevents.py", "train.py",
-                   "models/resnet.py", "models/hourglass.py", "training/oracle.py"):
+                   "models/resnet.py", "models/hourglass.py", "training/oracle.py",
+                   "evaluation/metrics.py", "evaluation/iou3d.py", "evaluation/mobilepose.py",
+                   "evaluation/relabel.py", "evaluation/evaluator.py", "data/objectron_pb.py",
+                   "evaluate.py", "native/__init__.py"):
         assert f"centerpose_tpu_torch/{module}" in names, module
+    # The 3D IoU library is built from the package's own copy of the source.
+    from centerpose_tpu_torch import native
+    assert native.SOURCE == REPO / "centerpose_tpu_torch" / "native" / "iou3d.cpp"
+    assert native.SOURCE.is_file() and native.library_path().parent == REPO / "centerpose_tpu_torch" / "build"
     banned = {"jax", "jaxlib", "flax", "centerpose_tpu", "optax", "orbax"}
     for path in files:
         for name in _imports(path):
