@@ -8,7 +8,9 @@ Counterpart of the JAX package's `demo.py` (parity target: src/demo.py —
 image/folder modes, per-stage times tot/pre/net/dec/post/merge/pnp/track,
 demo.py:19,54-57). It writes one `<name>.json` per image or frame into
 `--out_dir` (detections with score, pose, scale, keypoints and box, the
-track id when tracking, and the stage times) and prints the stage times.
+track id when tracking, and the stage times) and prints the stage times;
+`--save_json` is accepted, as the JAX CLI's (default on), and changes
+nothing.
 
 Runs on the GPU (`--device cuda`, the default) unless asked for the CPU.
 `--arch` takes every architecture of the factory (dla_34, dlav1_34,
@@ -49,6 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--rep_mode", type=int, default=1)
     p.add_argument("--cam_intrinsic", type=float, nargs=9, default=None)
     p.add_argument("--out_dir", default="demo_out")
+    p.add_argument("--save_json", action="store_true", default=True,
+                   help="accepted as the JAX CLI's: the JSON is always written")
     p.add_argument("--debug", type=int, default=0,
                    help="debug canvases: not ported, only 0 is accepted")
     p.add_argument("--batch_size", type=int, default=1,

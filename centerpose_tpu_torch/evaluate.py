@@ -15,7 +15,8 @@ defaults. Two modes (parity target: the reference's two harness entry points):
   * `--mode loss` — the validation loss of one checkpoint, or of every
     checkpoint under `--load_model` with `--all_checkpoints`
     (src/test.py:25-224), averaged over samples (the tail partial batch
-    counts by its size).
+    counts by its size); with `--tracking`, of the tracking model on the
+    val split of its dataset (each sample with its previous frame).
 
 Added: `--device` (default cuda; asked for cuda on a host without one, it
 raises). `--dcn_impl` is accepted and ignored: this package has one DCN
@@ -46,8 +47,6 @@ Where the twin differs from the reference on purpose:
     They run on `--tfrecords`.
   * An `--eval_hard_case` subset that matches no video evaluates nothing
     (the reference's `--data_dir` path then evaluates every video).
-  * `--mode loss --tracking` is refused: the tracking model's train and eval
-    step are not ported yet (ROADMAP.md queue A item 5).
 
 `main(argv)` returns what it printed: in metric mode `{"report":
 report_dict, "evaluator": Evaluator}`, in loss mode `{"runs": [...]}` with
@@ -173,9 +172,6 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     if not args.data_dir and not args.tfrecords:
         p.error("one of --data_dir / --tfrecords is required")
-    if args.mode == "loss" and args.tracking:
-        p.error("--mode loss --tracking: the tracking model's eval step is not ported to "
-                "centerpose_tpu_torch (ROADMAP.md queue A item 5)")
     if args.mode == "metric" and not args.tfrecords:
         tfrecord_only = [flag for flag, on in (
             ("--eval_gt_pre_hm_first", args.eval_gt_pre_hm_first),
@@ -431,7 +427,10 @@ def _loss(args, cfg: CenterPoseConfig) -> dict:
     from centerpose_tpu_torch.training.trainer import create_train_state, make_eval_step
     from centerpose_tpu_torch.utils.checkpoint import load_checkpoint
 
-    model = create_model(cfg, args.device, generator=torch.Generator().manual_seed(0))
+    # float32 parameters whatever --compute_dtype (a bf16 step casts at use),
+    # as train.py builds the model whose checkpoints this replays.
+    model = create_model(cfg, args.device, generator=torch.Generator().manual_seed(0),
+                         param_dtype=cfg.param_dtype)
     state, _ = create_train_state(cfg, model)
     eval_fn = make_eval_step(cfg, model)
     ds = ObjectPoseDataset(args.data_dir, cfg, split="val")

@@ -38,8 +38,21 @@ BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` that takes its batch statistics on the CPU from a
+    contiguous copy: PyTorch's CPU kernel for channels_last input sums them
+    in float32 in one pass, 2.6e-4 of the output off at a 2 x 128 x 128
+    batch (the tracking stems'), where its kernel for contiguous input is
+    1e-7 off. On CUDA, and in eval mode, the input goes through as it is."""
+
+    def forward(self, x):
+        if self.training and x.device.type == "cpu" and not x.is_contiguous():
+            return super().forward(x.contiguous()).contiguous(memory_format=torch.channels_last)
+        return super().forward(x)
+
+
 def bn2d(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,

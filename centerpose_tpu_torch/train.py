@@ -1,22 +1,30 @@
-"""Training entry point of the PyTorch package (CenterPose, the image model).
+"""Training entry point of the PyTorch package (CenterPose and CenterPoseTrack).
 
     python -m centerpose_tpu_torch.train --data_dir DATA --compute_dtype bfloat16
+    python -m centerpose_tpu_torch.train --data_dir VIDEOS --tracking_task --load_model exp/dlav1_34/default/ckpt
 
 The twin of the JAX package's `train.py` (parity target:
-src/main_CenterPose.py:25-191): seed, model + Adam, optional resume or
+src/main_CenterPose.py:25-191, src/main_CenterPoseTrack.py:118-242): seed, model + Adam, optional resume or
 partial init, the epoch loop with periodic validation, best / last /
 periodic checkpoints, LR ÷10 at the `--lr_step` epochs (a function of the
 update count, `training/trainer.py::make_lr_schedule`). DATA is a tree of
 DOPE-style png+json frames (`data/synthetic.py`, or
 `scripts/make_synthetic_dataset.py`).
 
+`--tracking_task` trains the tracking model: `preset("centerpose_track")`
+with the arch dla_34 whatever `--arch` says, as the JAX CLI does; its
+samples carry the previous frame and its noisy heatmaps
+(`data/dataset.py`), and `--load_model` initialises it from a trained
+CenterPose checkpoint by name and shape, the stems and tracking heads kept
+at init (the main_CenterPoseTrack flow).
+
 Flags keep the JAX CLI's names and defaults. Added: `--device` (default
-cuda; asked for cuda on a host without one, it raises). Refused, each with
-the ROADMAP.md item it waits for: `--tracking_task` (queue A item 5),
-`--debug > 0` (item 7), `--num_devices > 1` (item 8). Dropped: `--dcn_bwd`
-and `--dcn_impl`, the JAX package's TPU knobs: this package has one DCN
-forward kernel and one backward kernel template, chosen by the tensors'
-device and type.
+cuda; asked for cuda on a host without one, it raises). Refused, each named
+by the ROADMAP.md queue A item it waits for: `--debug > 0` (debug canvases
+and webcam), `--num_devices > 1` (side ops and scale-out). Accepted and ignored:
+`--dcn_bwd` and `--dcn_impl`, the JAX package's TPU knobs: this package has
+one DCN forward kernel and one backward kernel template, chosen by the
+tensors' device and type.
 
 `--compute_dtype bfloat16` trains in mixed precision: float32 parameters,
 BatchNorm statistics and Adam state, the forward in bf16 under autocast
@@ -62,7 +70,7 @@ def parse_args(argv=None):
     p.add_argument("--c", dest="category", default="shoe")
     p.add_argument("--arch", default="dlav1_34")
     p.add_argument("--tracking_task", action="store_true",
-                   help="CenterPoseTrack training: not ported (ROADMAP.md queue A item 5)")
+                   help="CenterPoseTrack training (dla_34 with the previous-frame stems)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--lr", type=float, default=1.25e-4)
     p.add_argument("--num_epochs", type=int, default=0, help="0 = preset default")
@@ -76,16 +84,21 @@ def parse_args(argv=None):
                         "(utils/checkpoint.py::load_partial); the optimizer and step start fresh")
     p.add_argument("--seed", type=int, default=317)
     p.add_argument("--num_devices", type=int, default=0,
-                   help="0 = all; one GPU only (more: ROADMAP.md queue A item 8)")
+                   help="0 = all; one GPU only (more: ROADMAP.md queue A, side ops and scale-out)")
     p.add_argument("--input_res", type=int, default=512)
     p.add_argument("--num_workers", type=int, default=2,
                    help="parallel loader workers; 0 = synchronous")
     p.add_argument("--loader_mode", choices=("thread", "process"), default="thread",
                    help="worker kind: threads or spawn processes")
+    p.add_argument("--dcn_bwd", choices=("auto", "pallas", "autodiff"), default="auto",
+                   help="accepted and ignored: the DCN backward is this package's kernel on CUDA")
+    p.add_argument("--dcn_impl", choices=("gather", "onehot"), default="gather",
+                   help="accepted and ignored: this package has one DCN forward kernel")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32",
                    help="bfloat16: mixed precision (float32 parameters, optimizer and loss)")
     p.add_argument("--debug", type=int, default=0,
-                   help="debug canvases: not ported (ROADMAP.md queue A item 7), only 0")
+                   help="debug canvases: not ported (ROADMAP.md queue A, debug canvases and webcam), "
+                        "only 0")
     p.add_argument("--mug", action="store_true",
                    help="cup category: train the non-symmetric mug sub-model")
     p.add_argument("--use_residual", action="store_true",
@@ -99,15 +112,12 @@ def parse_args(argv=None):
                    help="motion blur / downscale / gaussian noise before the affine warp")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
-    if args.tracking_task:
-        p.error("--tracking_task: training the tracking model is not ported to "
-                "centerpose_tpu_torch (ROADMAP.md queue A item 5)")
     if args.debug > 0:
         p.error("--debug > 0 (debug canvases) is not ported to centerpose_tpu_torch "
-                "(ROADMAP.md queue A item 7)")
+                "(ROADMAP.md queue A, debug canvases and webcam)")
     if args.num_devices > 1:
         p.error("--num_devices > 1: multi-GPU training is not ported to centerpose_tpu_torch "
-                "(ROADMAP.md queue A item 8)")
+                "(ROADMAP.md queue A, side ops and scale-out)")
     return args
 
 
@@ -126,9 +136,9 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device here (pass --device cpu to train on the CPU)")
     cfg = preset(
-        "centerpose",
+        "centerpose_track" if args.tracking_task else "centerpose",
         category=args.category,
-        arch=args.arch,
+        arch="dla_34" if args.tracking_task else args.arch,
         batch_size=args.batch_size,
         lr=args.lr,
         input_h=args.input_res,

@@ -16,6 +16,8 @@ BatchNorm statistics and the optimizer its moments, so a step updates them in
 place and hands back the same `TrainState`; the device is the model's. On a
 CUDA model every `DeformConvBlock` runs the forward kernel and, in the
 backward pass, the fused backward kernel (`ops/dcn_fwd.py::DCNv2Function`).
+For the tracking model (`cfg.tracking_task`, CenterPoseTrack) both steps also
+give the network the batch's `pre_img`, `pre_hm` and `pre_hm_hp`.
 
 Mixed precision (`compute_dtype="bfloat16"`, `train.py --compute_dtype
 bfloat16`), with the JAX package's semantics: parameters, BatchNorm running
@@ -196,14 +198,21 @@ def _compute(cfg: CenterPoseConfig, device: torch.device):
     return torch.autocast(device.type, dtype=torch.bfloat16)
 
 
+def _forward(cfg: CenterPoseConfig, model: nn.Module, batch: Dict[str, torch.Tensor]):
+    """The network on the batch's image; the tracking model (CenterPoseTrack)
+    also takes the previous frame and its rendered heatmaps."""
+    if cfg.tracking_task:
+        return model(batch["input"], pre_img=batch.get("pre_img"), pre_hm=batch.get("pre_hm"),
+                     pre_hm_hp=batch.get("pre_hm_hp"))
+    return model(batch["input"])
+
+
 def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam):
     """`step(state, batch) -> (state, stats)`: forward in train mode (batch
     statistics, running statistics updated), loss, backward, clip, Adam.
     `stats` are detached 0-d tensors on the model's device (per-head losses,
     `loss`); nothing synchronises with the host. The gradients of the step
     stay in the parameters' `.grad` (after clipping) until the next step."""
-    if cfg.tracking_task:
-        raise NotImplementedError("the tracking model is not ported yet; see ROADMAP.md")
     loss_cfg = loss_config_from(cfg)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -213,7 +222,7 @@ def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam):
         for p in tx.params:
             p.grad = None
         with _compute(cfg, device):
-            outputs = model(batch["input"])
+            outputs = _forward(cfg, model, batch)
         loss, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "train")
         loss.backward()
         for p in tx.params:
@@ -233,8 +242,6 @@ def make_eval_step(cfg: CenterPoseConfig, model: nn.Module):
     """Validation loss step (test.py / trainer.val parity): running BN stats,
     val-phase loss (relative scale error — trains/object_pose.py:125-128).
     `eval_fn(state, batch) -> stats`."""
-    if cfg.tracking_task:
-        raise NotImplementedError("the tracking model is not ported yet; see ROADMAP.md")
     loss_cfg = loss_config_from(cfg)
 
     def eval_fn(state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -242,7 +249,7 @@ def make_eval_step(cfg: CenterPoseConfig, model: nn.Module):
         batch = _to_device(batch, device)
         model.eval()
         with torch.no_grad(), _compute(cfg, device):
-            outputs = model(batch["input"])
+            outputs = _forward(cfg, model, batch)
             _, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "val")
         return stats
 

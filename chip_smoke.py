@@ -7,7 +7,8 @@ drives `centerpose_tpu_torch`'s serving path and its training paths (float32,
 bf16 mixed precision, and the training CLI on the package's own synthetic
 data) at the full width of the flagship model (dlav1_34 at 512x512, random
 weights from seed 0), its video-tracking path with the CenterPoseTrack
-model (dla_34 at 512x512, one frame per call), its evaluation CLI (AP of
+model (dla_34 at 512x512, one frame per call) and that model's training
+(its steps, `train.py --tracking_task`, its validation loss), its evaluation CLI (AP of
 both models over generated frames, and the validation loss), and the other
 architectures (res_18, resdcn_18, dlav0_34, hourglass at 512x512, served
 and trained) through the entry points a user calls, builds the CUDA
@@ -153,6 +154,28 @@ Phases:
            `--resume` for one more. The step 2 -> 4, finite losses,
            checkpoints, bf16 launches per step and per validation batch; ms
            per step and the share spent waiting for the loader.
+  train_track
+           The tracking model (`preset("centerpose_track")`: dla_34 with the
+           previous-frame stems and the tracking heads, 512x512, full width
+           and depth, random weights from seed 0, offset convs drawn)
+           trained on the card: one batch of 8 from the package's tracking
+           `ObjectPoseDataset` on 16 generated 640x480 frames (2 videos of
+           8), so that `pre_img`, `pre_hm` and the tracking targets are
+           real; a warm-up and 3 timed steps in float32 (TF32 off) and in
+           bf16 mixed precision: finite losses, tracking_loss and
+           tracking_hp_loss > 0, 16 forward and 16 fused backward launches
+           a step by shape at PRODUCTION_SHAPES, ms per step, images/s and
+           peak memory; the fused backward kernel at the first DCN block of
+           each type's warm-up step is held, on that step's own operands and
+           cotangent, against the plain version (TOL_BWD_REL / TOL_BWD_ABS,
+           TOL_BWD_BF16). Then
+           `train.main(["--tracking_task", "--compute_dtype", "bfloat16",
+           ...])` (one epoch of 2 steps, validated and checkpointed; ms per
+           step, loader-wait share) and `evaluate.main(["--mode", "loss",
+           "--tracking", ...])` on its checkpoint (16 bf16 forward launches
+           a batch); then 4 samples of a tracking dataset with a dlav1_34
+           `Detector` in the loop (`data_generation_mode_ratio` 1): heat in
+           every `pre_hm`, 16 forward launches and ms per sample.
   evaluate `python -m centerpose_tpu_torch.evaluate` in process: the
            package's generator writes 2 videos of 8 frames of 640x480 into a
            temporary directory (and `data/tfrecord.py::pack_dope_dataset`
@@ -1565,12 +1588,20 @@ def count_dcn_backward_shapes(model, counter: Counter):
     return [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, layers.DCN)]
 
 
-def timed_step(step, state, batch):
+def timed_stats_step(step, state, batch):
+    """One train step: its host-clock ms (the fetch of its stats waits for
+    the device) and every stat as a float."""
     t0 = time.perf_counter()
     state, stats = step(state, batch)
-    loss = stats["loss"].item()                          # waits for the device
+    keys = list(stats)
+    values = torch.stack([stats[k].float() for k in keys]).tolist()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3, loss
+    return (time.perf_counter() - t0) * 1e3, dict(zip(keys, values))
+
+
+def timed_step(step, state, batch):
+    ms, stats = timed_stats_step(step, state, batch)
+    return ms, stats["loss"]
 
 
 # Kernel families of a profiled step, by the first pattern a kernel's name
@@ -1969,6 +2000,261 @@ def phase_train_cli():
         "loader_wait_ms_each": wait_ms, "loader_wait_share": sum(wait_ms) / sum(step_ms),
         "launches_bf16": counts,
     })
+
+
+# -------------------------------------------------------------- train_track
+TRACK_DETECTOR_SAMPLES = 4
+
+
+def spy_dcn_call(record: dict):
+    """Wrap the deformable convolution the DCN blocks call
+    (`models/layers.py::dcn_v2_forward`) so that the first call of a train
+    step keeps its five operands in `record` and, from a gradient hook on its
+    output, the cotangent its backward receives; returns the function that
+    undoes it."""
+    real = layers.dcn_v2_forward
+
+    def spy(x, offset, mask, weight, bias):
+        out = real(x, offset, mask, weight, bias)
+        if not record and out.requires_grad:
+            record["args"] = tuple(t.detach() for t in (x, offset, mask, weight, bias))
+            out.register_hook(lambda grad: record.setdefault("dout", grad.detach()))
+        return out
+
+    layers.dcn_v2_forward = spy
+
+    def undo():
+        layers.dcn_v2_forward = real
+    return undo
+
+
+def check_step_backward(record: dict, dtype: str) -> dict:
+    """The fused backward kernel at one DCN block of a train step, on that
+    step's own operands and cotangent (`spy_dcn_call`), against the plain
+    version: each of dX, d_offset, d_mask and dW within TOL_BWD_*
+    (TOL_BWD_BF16 for bf16 operands) of the term's largest magnitude."""
+    require("dout" in record, f"{dtype} step: no cotangent reached the first DCN block")
+    x, offset, mask, weight, bias = record["args"]
+    dout = record["dout"]
+    got = dcn_bwd.dcn_v2_bwd_fused(x, offset, mask, weight, dout)
+    ref = dcn_bwd.dcn_v2_grads_plain(x, offset, mask, weight, bias, dout)
+    rel, abs_ = (TOL_BWD_REL, TOL_BWD_ABS) if dtype == "float32" else (TOL_BWD_BF16["rel"], TOL_BWD_BF16["abs"])
+    errs = {}
+    for name, g, r in zip(GRAD_NAMES, got, ref):
+        require(g.shape == r.shape and g.dtype == r.dtype, f"{dtype} step backward: {name} shape or type")
+        err = (g.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        require(err <= rel * scale + abs_,
+                f"{dtype} step backward at the step's operands: {name} off by {err}, limit {rel * scale + abs_}")
+        errs[name] = {"max_abs_err": err, "term_max": scale}
+    return {"shape": list(x.shape) + [weight.shape[-1]], "dtype": str(x.dtype).replace("torch.", ""),
+            "tolerance": [rel, abs_], "terms": errs}
+
+
+def phase_train_track(per_forward):
+    """The tracking model (CenterPoseTrack) trained on the card. The
+    package's generator writes two videos of 8 frames of 640x480 into a
+    temporary directory. (1) `preset("centerpose_track")` (dla_34 with the
+    previous-frame stems and the tracking heads, 512x512, full width and
+    depth), random weights from seed 0 with the offset convs drawn, on one
+    batch of 8 from the package's tracking `ObjectPoseDataset` (the previous
+    frame, its noisy heatmaps, the tracking targets): a warm-up and
+    TRAIN_STEPS timed steps in float32 (TF32 off) and in bf16 mixed
+    precision; finite losses with tracking_loss and tracking_hp_loss > 0,
+    16 forward and 16 fused backward launches a step by shape at the
+    production shapes; the fused backward kernel at the first DCN block of
+    each type's warm-up step is held, on that step's operands and cotangent,
+    against the plain version (after the counts are read). (2) `train.main(["--tracking_task", "--compute_dtype",
+    "bfloat16", ...])`: one epoch of 2 steps, validated and checkpointed,
+    then `evaluate.main(["--mode", "loss", "--tracking", ...])` on its
+    checkpoint. (3) A tracking dataset with a dlav1_34 `Detector` on the card
+    in the loop (`data_generation_mode_ratio` 1; random weights from seed 0,
+    offset convs drawn, boxes 12 output pixels wide, vis_thresh 0.05, so
+    that random weights give boxes): TRACK_DETECTOR_SAMPLES samples read synchronously,
+    heat in every `pre_hm`, 16 forward launches a sample. Every counter is
+    set to 0 before (1) and read after (3)."""
+    import tempfile
+
+    from centerpose_tpu_torch import evaluate as evaluate_cli
+    from centerpose_tpu_torch import train as train_cli
+    from centerpose_tpu_torch.data.dataset import ObjectPoseDataset, collate_filtered
+    from centerpose_tpu_torch.data.synthetic import generate_dataset
+    from centerpose_tpu_torch.utils.checkpoint import latest_step
+
+    torch.cuda.empty_cache()
+    fused = dcn_bwd.dcn_v2_bwd_fused
+    cwd = os.getcwd()
+    out = {"phase": "train_track", "arch": "dla_34", "input": [TRAIN_BATCH, INPUT, INPUT, 3]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_track_") as tmp:
+        t0 = time.time()
+        data = os.path.join(tmp, "data")
+        frames = generate_dataset(data, n_videos=2, frames_per_video=8, seed=0, width=640, height=480)
+        cfg32 = preset("centerpose_track", input_h=INPUT, input_w=INPUT, batch_size=TRAIN_BATCH)
+        ds = ObjectPoseDataset(data, cfg32, split="train", seed=0, compact_wire=True)
+        items = [ds[i] for i in range(TRAIN_BATCH)]
+        for item in items:
+            item.pop("meta")
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in collate_filtered(items).items()}
+        out["data"] = {"frames": len(frames), "size": [640, 480], "videos": 2,
+                       "setup_s": time.time() - t0,
+                       "batch_pre_hm_max": batch["pre_hm"].max().item() / 255.0,
+                       "batch_tracking_targets": batch["tracking_mask"].sum().item()}
+        require(batch["pre_hm"].max() > 0 and batch["tracking_mask"].sum() > 0,
+                "the tracking batch has no previous-frame heat or no tracking target")
+
+        reset_launches()
+        all_fwd = Counter()
+        global_hook = count_all_dcn_shapes(all_fwd)
+        steps = 1 + TRAIN_STEPS
+        checks = {}
+        try:
+            # ---- (1) the steps, float32 then bf16 ------------------------------
+            for dtype in ("float32", "bfloat16"):
+                cfg = cfg32.replace(compute_dtype=dtype)
+                torch.cuda.reset_peak_memory_stats()
+                model = train_model(cfg)
+                state, tx = create_train_state(cfg, model, steps_per_epoch=1000)
+                step = make_train_step(cfg, model, tx)
+                fwd_shapes, bwd_shapes = Counter(), Counter()
+                hooks = count_dcn_shapes(model, fwd_shapes) + count_dcn_backward_shapes(model, bwd_shapes)
+                before = {"fwd": dcn_v2_forward.launches, "fwd_bf16": dcn_v2_forward.launches_bf16,
+                          "bwd": fused.launches, "bwd_bf16": fused.launches_bf16}
+                record = {}
+                undo = spy_dcn_call(record)
+                try:
+                    first = timed_stats_step(step, state, batch)
+                finally:
+                    undo()
+                timed = [timed_stats_step(step, state, batch) for _ in range(TRAIN_STEPS)]
+                for h in hooks:
+                    h.remove()
+                n_fwd = dcn_v2_forward.launches - before["fwd"]
+                n_bwd = fused.launches - before["bwd"]
+                n_bf16 = (dcn_v2_forward.launches_bf16 - before["fwd_bf16"], fused.launches_bf16 - before["bwd_bf16"])
+                stats = [first[1]] + [st for _, st in timed]
+                losses = [st["loss"] for st in stats]
+                require(all(np.isfinite(v) for st in stats for v in st.values()), f"{dtype} track step: {stats}")
+                require(all(st["tracking_loss"] > 0 and st["tracking_hp_loss"] > 0 for st in stats),
+                        f"{dtype} track step: a tracking loss is 0: {stats}")
+                require(n_fwd == 16 * steps and n_bwd == 16 * steps,
+                        f"{dtype} track steps: {n_fwd} forward, {n_bwd} fused backward launches in {steps} steps")
+                require(n_bf16 == ((n_fwd, n_bwd) if dtype == "bfloat16" else (0, 0)),
+                        f"{dtype} track steps: bf16 launches {n_bf16}")
+                for shape, n in per_forward.items():
+                    require(fwd_shapes[shape] == steps * n and bwd_shapes[shape] == steps * n,
+                            f"{dtype} track steps, shape {shape}: {fwd_shapes[shape]} forward / "
+                            f"{bwd_shapes[shape]} backward passes, {n} a forward in the model phase")
+                require(sum(fwd_shapes.values()) == n_fwd and sum(bwd_shapes.values()) == n_bwd,
+                        f"{dtype} track steps: passes by shape do not add up to the launch counters")
+                step_ms = sorted(ms for ms, _ in timed)[len(timed) // 2]
+                out[dtype] = {
+                    "steps": steps, "losses": losses, "first_step_ms": first[0],
+                    "ms_per_step_each": [ms for ms, _ in timed], "ms_per_step": step_ms,
+                    "images_per_s": TRAIN_BATCH / (step_ms * 1e-3),
+                    "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+                    "stats_last": stats[-1], "launches": {"dcn_v2_fwd": n_fwd, "dcn_v2_bwd_fused": n_bwd},
+                }
+                checks[dtype] = record
+                del model, state, tx, step
+                torch.cuda.empty_cache()
+            out["float32"]["tf32"] = {"cudnn": torch.backends.cudnn.allow_tf32,
+                                      "matmul": torch.backends.cuda.matmul.allow_tf32}
+
+            # ---- (2) the CLIs --------------------------------------------------
+            argv = ["--data_dir", data, "--tracking_task", "--compute_dtype", "bfloat16",
+                    "--batch_size", str(TRAIN_BATCH), "--input_res", str(INPUT), "--num_workers", "2",
+                    "--val_intervals", "1", "--num_epochs", "1", "--exp_id", "chip_smoke_track"]
+            os.chdir(tmp)
+            script_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS
+            try:
+                before = (dcn_v2_forward.launches_bf16, fused.launches_bf16)
+                t0 = time.time()
+                trained = train_cli.main(argv)
+                train_s = time.time() - t0
+                ckpt = os.path.join(tmp, trained["exp_dir"], "ckpt")
+                ckpts = {d: latest_step(os.path.join(tmp, trained["exp_dir"], d)) for d in ("ckpt", "best")}
+                mid = (dcn_v2_forward.launches_bf16, fused.launches_bf16)
+                t0 = time.time()
+                replay = evaluate_cli.main(["--mode", "loss", "--tracking", "--data_dir", data,
+                                            "--input_res", str(INPUT), "--compute_dtype", "bfloat16",
+                                            "--load_model", ckpt])
+                eval_s = time.time() - t0
+                after = (dcn_v2_forward.launches_bf16, fused.launches_bf16)
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+                os.chdir(cwd)
+
+            # ---- (3) the detector in the loop ----------------------------------
+            dcfg = preset("centerpose", input_h=INPUT, input_w=INPUT, vis_thresh=EVAL_VIS_THRESH)
+            det = Detector(dcfg, device=DEVICE)                  # weights from seed 0
+            randomize_offset_convs(det.model, seed=0)
+            with torch.no_grad():
+                det.model.wh[-1].bias.fill_(12.0)                # boxes 12 output pixels wide
+            loop = ObjectPoseDataset(data, cfg32, split="train", seed=0, detector=det,
+                                     data_generation_mode_ratio=1.0)
+            before_loop = dcn_v2_forward.launches
+            sample_ms, heat = [], []
+            for i in range(TRACK_DETECTOR_SAMPLES):
+                t0 = time.perf_counter()
+                item = loop[i]
+                torch.cuda.synchronize()
+                sample_ms.append((time.perf_counter() - t0) * 1e3)
+                require(item is not None, f"detector-in-the-loop sample {i} is None")
+                heat.append(float(item["pre_hm"].max()))
+            loop_launches = dcn_v2_forward.launches - before_loop
+        finally:
+            global_hook.remove()
+        counts = {"dcn_v2_fwd": dcn_v2_forward.launches, "dcn_v2_fwd_bf16": dcn_v2_forward.launches_bf16,
+                  "dcn_v2_bwd_fused": fused.launches,
+                  "dcn_v2_bwd_fused_bf16": fused.launches_bf16}            # ---- the main path ends
+        n_steps = len(frames) // TRAIN_BATCH
+        n_val = -(-len(frames) // TRAIN_BATCH)
+        n_eval = -(-len(frames) // 8)                    # the loss mode's batches of 8
+        cli_fwd, cli_bwd = mid[0] - before[0], mid[1] - before[1]
+        require(trained["step"] == n_steps and ckpts["ckpt"] == n_steps and ckpts["best"] == n_steps,
+                f"tracking train CLI: step {trained['step']}, checkpoints {ckpts}")
+        epoch = trained["epochs"][0]
+        require(all(np.isfinite(v) for ph in ("train", "val") for v in epoch[ph].values()),
+                f"tracking train CLI losses: {epoch}")
+        require(epoch["train"]["tracking_loss"] > 0 and epoch["val"]["tracking_loss"] > 0,
+                f"tracking train CLI: tracking_loss {epoch}")
+        require(cli_bwd == 16 * n_steps and cli_fwd == 16 * (n_steps + n_val),
+                f"tracking train CLI: {cli_fwd} bf16 forward, {cli_bwd} bf16 fused backward launches in "
+                f"{n_steps} steps and {n_val} validation batches")
+        run = replay["runs"][0]
+        require(run["step"] == n_steps and run["samples"] == len(frames)
+                and all(np.isfinite(v) for v in run["losses"].values()),
+                f"evaluate --mode loss --tracking: {run}")
+        require(after[0] - mid[0] == 16 * n_eval and after[1] == mid[1],
+                f"evaluate --mode loss --tracking: {after[0] - mid[0]} bf16 forward launches for {n_eval} batches")
+        require(all(h > 0 for h in heat), f"detector in the loop: pre_hm maxima {heat}")
+        require(loop_launches == 16 * TRACK_DETECTOR_SAMPLES,
+                f"detector in the loop: {loop_launches} forward launches for {TRACK_DETECTOR_SAMPLES} samples")
+        require(sum(all_fwd.values()) == counts["dcn_v2_fwd"],
+                f"train_track: forward passes by shape {sum(all_fwd.values())}, launches {counts['dcn_v2_fwd']}")
+        require(set(all_fwd) <= set(per_forward), f"train_track: a DCN shape outside the production ones: {all_fwd}")
+
+    # Held against the plain version after the counts are read.
+    out["step_backward_vs_plain"] = {dt: check_step_backward(rec, dt) for dt, rec in checks.items()}
+    del checks
+    torch.cuda.empty_cache()
+    step_ms = trained["ms_per_step"]
+    out.update({
+        "cli": {"command": "python -m centerpose_tpu_torch.train " + " ".join(argv), "seconds": train_s,
+                "step": trained["step"], "checkpoints": ckpts, "epoch": epoch,
+                "ms_per_step_each": step_ms, "loader_wait_ms_each": trained["loader_wait_ms"],
+                "loader_wait_share": trained["loader_wait_share"],
+                "launches_bf16": {"dcn_v2_fwd": cli_fwd, "dcn_v2_bwd_fused": cli_bwd}},
+        "evaluate_loss": {"seconds": eval_s, "losses": run["losses"], "samples": run["samples"],
+                          "ms_per_batch": run["ms_per_batch"], "launches_bf16": after[0] - mid[0]},
+        "detector_in_the_loop": {"arch": dcfg.arch, "vis_thresh": dcfg.vis_thresh,
+                                 "samples": TRACK_DETECTOR_SAMPLES, "ms_per_sample": sample_ms,
+                                 "pre_hm_max": heat, "launches": loop_launches},
+        "launches": counts, "launches_by_shape": {"x".join(map(str, k)): v for k, v in all_fwd.items()},
+    })
+    emit(out)
+    return all_fwd, counts
 
 
 # ---------------------------------------------------------------- evaluate
@@ -2486,6 +2772,7 @@ def main() -> int:
     train_fwd_launches, train_counts = phase_train(per_forward, entries, bwd_per_shape)
     train_bf16_counts = phase_train_bf16(per_forward)
     phase_train_cli()
+    track_train_fwd, track_train_counts = phase_train_track(per_forward)
     eval_counts = phase_evaluate()
     phase_kernels_r50()
     archs_fwd, archs_fused = phase_archs(entries, bwd_per_shape, bwd_bf16_per_shape)
@@ -2507,6 +2794,9 @@ def main() -> int:
         e["launches_archs"] = archs_fwd.get((hw, c, co), 0)
         e["launches_evaluate"] = eval_counts["image"].get((hw, c, co), 0)
         require(e["launches_evaluate"] > 0, f"the evaluate path never launched the kernel at {e['shape']}")
+        e["launches_train_track"] = track_train_fwd.get((hw, c, co), 0)
+        require(e["launches_train_track"] > 0,
+                f"the tracking training path never launched the kernel at {e['shape']}")
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
     require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
             "training launches by shape do not add up to the counter")
@@ -2516,12 +2806,18 @@ def main() -> int:
             "the archs phase's forward launches are not all at production shapes")
     require(sum(e["launches_evaluate"] for e in entries) == sum(eval_counts["image"].values()),
             "the evaluate phase's image-model launches are not all at production shapes")
+    require(sum(e["launches_train_track"] for e in entries) == track_train_counts["dcn_v2_fwd"],
+            "the tracking training path's launches by shape do not add up to the counter")
     fused_entries = {dt: backward_entries(rows, per_forward, counts, dt) for dt, rows, counts in (
         ("float32", bwd_per_shape, train_counts), ("bfloat16", bwd_bf16_per_shape, train_bf16_counts))}
     for dt, rows in fused_entries.items():
         entry = next(e for e in rows if e["name"].startswith("dcn_v2_bwd_fused"))
         entry["launches_archs"] = archs_fused[dt]
         require(entry["launches_archs"] > 0, f"the archs phase never launched the fused backward ({dt})")
+        n_bf16 = track_train_counts["dcn_v2_bwd_fused_bf16"]
+        entry["launches_train_track"] = n_bf16 if dt == "bfloat16" else track_train_counts["dcn_v2_bwd_fused"] - n_bf16
+        require(entry["launches_train_track"] > 0,
+                f"the tracking training path never launched the fused backward ({dt})")
     row_entry = row_kernel_entry(entries, per_forward, track_launches)
     for row in row_entry["per_shape"]:
         _, hw, _, c, co = row["shape"]
@@ -2529,6 +2825,9 @@ def main() -> int:
     row_entry["launches_evaluate"] = sum(row["launches_evaluate"] for row in row_entry["per_shape"])
     require(row_entry["launches_evaluate"] == sum(eval_counts["tracking"].values()) > 0,
             "the evaluate phase's tracking launches are not all at production shapes")
+    # B2's counterpart is B1's float32 body: the tracking training path's float32 launches.
+    row_entry["launches_train_track"] = track_train_counts["dcn_v2_fwd"] - track_train_counts["dcn_v2_fwd_bf16"]
+    require(row_entry["launches_train_track"] > 0, "the tracking training path never launched the float32 body")
     summary = {"kernels": entries + [row_entry]
                + fused_entries["float32"] + fused_entries["bfloat16"]}
     # A kernel faster than its bound would mean a wrong bound, not a fast

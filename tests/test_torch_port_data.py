@@ -162,12 +162,6 @@ def test_compact_wire_fix_keeps_shoulders_off_the_focal_positive():
     assert (decoded == 1.0).sum() == 1 and ((jax_wire.astype(np.float32) / 255.0) == 1.0).sum() > 1
 
 
-def test_dataset_refuses_the_tracking_model(frames):
-    cfg = preset("centerpose_track", input_h=RES, input_w=RES)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        dataset.ObjectPoseDataset(frames, cfg)
-
-
 def test_collate_and_discovery_match(frames):
     assert dataset.find_samples(frames) == jax_dataset.find_samples(frames)
     port, _ = _pair(frames, "val")

@@ -403,7 +403,6 @@ def test_cli_refuses_what_the_data_dir_driver_does_not_run(flag, capsys):
 
 def test_cli_refusals_and_device(capsys):
     for argv, message in ((["--c", "shoe"], "one of --data_dir / --tfrecords"),
-                          (["--data_dir", "d", "--mode", "loss", "--tracking"], "queue A item 5"),
                           (["--data_dir", "d", "--eval_continue"], "requires --stats_save"),
                           (["--data_dir", "d", "--n_proc", "2"], "requires --eval_continue")):
         with pytest.raises(SystemExit):

@@ -4,14 +4,19 @@
 `--device cpu` at 64x64: two steps of dlav1_34 on the package's own
 synthetic frames, validation, the checkpoint layout of the JAX CLI
 (`ckpt/`, `best/`, `epoch_N/`, one directory per step), then `--resume`
-from the last checkpoint; the flags it keeps have the JAX CLI's names and
-defaults, the ones that wait for later work raise; `utils/checkpoint.py`
+from the last checkpoint; every option of the JAX package's `train.py`,
+`demo.py` and `evaluate.py` parses in its twin with the same default, and
+the ones that wait for later work raise; `utils/checkpoint.py`
 round-trips a train state and partially initialises a model by name and
 shape.
 """
 
+import argparse
+import importlib.util
 import os
 import sys
+from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ from centerpose_tpu_torch.training import trainer
 from centerpose_tpu_torch.utils import checkpoint
 
 RES = 64
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -107,9 +113,8 @@ def test_cli_trains_res_18(data, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--tracking_task"], "queue A item 5"),
-    (["--debug", "1"], "queue A item 7"),
-    (["--num_devices", "2"], "queue A item 8"),
+    (["--debug", "1"], "queue A, debug canvases and webcam"),
+    (["--num_devices", "2"], "queue A, side ops and scale-out"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, item, capsys):
     with pytest.raises(SystemExit):
@@ -117,19 +122,65 @@ def test_cli_refuses_what_is_not_ported(flags, item, capsys):
     assert item in capsys.readouterr().err
 
 
-def test_cli_keeps_the_jax_flags_and_defaults(monkeypatch):
-    """Every flag of the JAX CLI but its two TPU knobs, with the same
-    default; `--device` added (default cuda)."""
-    import train as jax_train                     # the JAX package's CLI, at the repo root
+def _parser_of(parse):
+    """The `argparse` parser a CLI's `parse_args` builds, caught as `parse()`
+    runs it."""
+    caught = []
+    real = argparse.ArgumentParser.parse_args
 
-    monkeypatch.setattr(sys, "argv", ["train.py", "--data_dir", "d"])
-    ref = vars(jax_train.parse_args())
-    got = vars(train.parse_args(["--data_dir", "d"]))
-    assert set(ref) - set(got) == {"dcn_bwd", "dcn_impl"}
-    assert set(got) - set(ref) == {"device"} and got["device"] == "cuda"
-    for k in got:
-        if k != "device":
-            assert got[k] == ref[k], k
+    def parse_args(self, args=None, namespace=None):
+        caught.append(self)
+        return real(self, args, namespace)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", parse_args):
+        parse()
+    return caught[0]
+
+
+def _options(parser):
+    return {opt: a for a in parser._actions for opt in a.option_strings if opt not in ("-h", "--help")}
+
+
+def _keeps_the_jax_options(script, port_cli, argv):
+    """Every option of the JAX package's root CLI `script` parses in the
+    port's twin, to the same destination with the same default, choices,
+    type and count; the port adds `--device` (default cuda) and nothing
+    else."""
+    spec = importlib.util.spec_from_file_location(f"jax_{script}_cli", REPO / f"{script}.py")
+    jax_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_cli)
+    with mock.patch.object(sys, "argv", [f"{script}.py", *argv]):   # the JAX CLIs read sys.argv
+        ref = _options(_parser_of(jax_cli.parse_args))
+    got = _options(_parser_of(lambda: port_cli.parse_args(argv)))
+    assert set(ref) <= set(got), sorted(set(ref) - set(got))
+    assert set(got) - set(ref) == {"--device"} and got["--device"].default == "cuda"
+    for opt, a in ref.items():
+        b = got[opt]
+        assert (b.dest, b.default, b.choices, b.type, b.nargs, b.const) == \
+            (a.dest, a.default, a.choices, a.type, a.nargs, a.const), opt
+
+
+def test_cli_keeps_the_jax_flags_and_defaults():
+    """Every flag of the JAX CLI, with the same default (`--dcn_bwd` and
+    `--dcn_impl` accepted and ignored); `--device` added (default cuda)."""
+    _keeps_the_jax_options("train", train, ["--data_dir", "d"])
+    args = train.parse_args(["--data_dir", "d", "--dcn_bwd", "pallas", "--dcn_impl", "onehot"])
+    assert (args.dcn_bwd, args.dcn_impl) == ("pallas", "onehot")
+
+
+def test_demo_cli_keeps_the_jax_flags_and_defaults():
+    """The demo twin takes every option of the JAX `demo.py`, `--save_json`
+    (store_true, default True) among them."""
+    from centerpose_tpu_torch import demo
+
+    _keeps_the_jax_options("demo", demo, ["--demo", "x"])
+    assert demo.parse_args(["--demo", "x", "--save_json"]).save_json is True
+
+
+def test_evaluate_cli_keeps_the_jax_flags_and_defaults():
+    from centerpose_tpu_torch import evaluate
+
+    _keeps_the_jax_options("evaluate", evaluate, ["--data_dir", "d"])
 
 
 def test_cli_refuses_cuda_without_a_gpu(data, tmp_path, monkeypatch):

@@ -482,5 +482,3 @@ def test_train_step_refuses_missing_gradients_and_tracking():
     _, tx = trainer.create_train_state(cfg, model)
     with pytest.raises(RuntimeError, match="no gradient"):
         tx.step()
-    with pytest.raises(NotImplementedError):
-        trainer.make_train_step(preset("centerpose_track"), model, tx)
