@@ -10,7 +10,13 @@ demo.py:19,54-57). It writes one `<name>.json` per image or frame into
 `--out_dir` (detections with score, pose, scale, keypoints and box, the
 track id when tracking, and the stage times) and prints the stage times;
 `--save_json` is accepted, as the JAX CLI's (default on), and changes
-nothing.
+nothing. `--debug 1` also writes `<name>.png`, the detections drawn over the
+image (`utils/visualize.py::draw_detections`); `--debug 2` adds the
+reference's debug canvases (`Detector.render_debug`) as
+`<out_dir>/debug/<name>_<canvas>.png` (out_hm_pred, out_hmhp_pred,
+out_kps_processed_pred, out_img_pred; for tracking also out_tracking_pred,
+pre_hm, pre_hmhp). `--demo webcam` (or a `/dev/videoN` path) reads frames
+from a V4L2 camera (`data/webcam.py`).
 
 Runs on the GPU (`--device cuda`, the default) unless asked for the CPU.
 `--arch` takes every architecture of the factory (dla_34, dlav1_34,
@@ -22,8 +28,7 @@ checkpoint directory of this package's `train.py` (`ckpt/`, `best/`,
 load_for_inference`. The JAX package's orbax checkpoints belong to that
 package. Every arch is built
 at the preset's head_conv of 256, so a reference res/resdcn checkpoint, whose
-heads are 64 wide, does not load. Not ported: `--debug`
-canvases and the webcam reader.
+heads are 64 wide, does not load.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import numpy as np
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="centerpose_tpu_torch demo")
     p.add_argument("--demo", required=True,
-                   help="image, folder of images, video file, or frame folder (with --tracking)")
+                   help="image, folder of images, video file, frame folder (with --tracking), "
+                        "or webcam / /dev/videoN")
     p.add_argument("--arch", default="dlav1_34")
     p.add_argument("--c", dest="category", default="shoe")
     p.add_argument("--load_model", default="",
@@ -54,7 +60,8 @@ def parse_args(argv=None):
     p.add_argument("--save_json", action="store_true", default=True,
                    help="accepted as the JAX CLI's: the JSON is always written")
     p.add_argument("--debug", type=int, default=0,
-                   help="debug canvases: not ported, only 0 is accepted")
+                   help="1: draw the detections into <name>.png; 2: also the debug canvases "
+                        "under <out_dir>/debug/")
     p.add_argument("--batch_size", type=int, default=1,
                    help="folder mode: batch the network pass over N images")
     p.add_argument("--keep_res", action="store_true",
@@ -68,10 +75,7 @@ def parse_args(argv=None):
                         "what every sampler of the JAX package computes")
     p.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"))
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    args = p.parse_args(argv)
-    if args.debug > 0:
-        p.error("--debug > 0 (debug canvases) is not ported to centerpose_tpu_torch")
-    return args
+    return p.parse_args(argv)
 
 
 def load_detector(args):
@@ -102,7 +106,14 @@ def _frames(args):
     from PIL import Image
 
     if args.demo == "webcam" or args.demo.startswith("/dev/video"):
-        raise SystemExit("the webcam reader is not ported to centerpose_tpu_torch")
+        # Live capture (reference demo.py:31-57, cv2.VideoCapture(0)).
+        from centerpose_tpu_torch.data.webcam import V4L2Camera
+
+        device = "/dev/video0" if args.demo == "webcam" else args.demo
+        with V4L2Camera(device) as cam:
+            for i, frame in enumerate(cam):
+                yield f"cam_{i:05d}", frame
+        return
     is_video = args.demo.lower().endswith((".mp4", ".mov", ".webm", ".avi", ".y4m"))
     if is_video or (args.tracking and os.path.isdir(args.demo)):
         from centerpose_tpu_torch.data.video import open_video
@@ -142,19 +153,31 @@ def _record(name, out):
 def main(argv=None) -> int:
     args = parse_args(argv)
     detector = load_detector(args)
+    detector.debug_level = args.debug
     os.makedirs(args.out_dir, exist_ok=True)
 
     meta = {}
     if args.cam_intrinsic is not None:
         meta["camera_matrix"] = np.array(args.cam_intrinsic).reshape(3, 3)
 
-    def emit(name, out):
+    def emit(name, img, out):
         times = out.get("times")
         if times:
             print(f"{name}: " + "|".join(f"{k} {v:.3f}s" for k, v in times.items()), flush=True)
         base = os.path.splitext(os.path.basename(name))[0]
         with open(os.path.join(args.out_dir, base + ".json"), "w") as f:
             json.dump(_record(name, out), f, indent=1)
+        if args.debug > 0:
+            from PIL import Image
+
+            from centerpose_tpu_torch.utils.visualize import draw_detections
+
+            vis = draw_detections(img, out["results"], out["boxes"])
+            Image.fromarray(vis).save(os.path.join(args.out_dir, base + ".png"))
+        if args.debug >= 2:
+            # The reference's canvas set (object_pose.py:199-313 debug levels).
+            dbg = detector.render_debug(img, out)
+            dbg.save_all_imgs(os.path.join(args.out_dir, "debug"), prefix=base + "_")
 
     if args.batch_size > 1 and not args.tracking:
         # Pipelined batched serving: chunk N's host post/merge/PnP overlaps
@@ -174,12 +197,12 @@ def main(argv=None) -> int:
                 yield [im for _, im in buf], [meta or None] * len(buf)
 
         for outs in detector.run_batch_stream(feed(), timing=True):
-            for (name, _), out in zip(pending.pop(0), outs):
-                emit(name, out)
+            for (name, img), out in zip(pending.pop(0), outs):
+                emit(name, img, out)
         return 0
 
     for name, img in _frames(args):
-        emit(name, detector.run(img, meta or None))
+        emit(name, img, detector.run(img, meta or None))
     return 0
 
 

@@ -13,12 +13,24 @@ binary-counting order over (x, y, z) sign bits:
 with size3d = (width=x, height=y, depth=z). Objectron's 9-point annotation prepends
 the box center at index 0; keypoint heads use only the 8 corners in this order.
 
-The PyTorch package's own copy of `centerpose_tpu/geometry/cuboid.py::cuboid_vertices`.
+The PyTorch package's own copy of `centerpose_tpu/geometry/cuboid.py::cuboid_vertices`
+and `CUBOID_EDGES`.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+# Edges as index pairs into the 8-corner binary ordering (for visualization).
+# Two corners share an edge iff their sign-bit patterns differ in exactly one bit.
+CUBOID_EDGES: Tuple[Tuple[int, int], ...] = tuple(
+    (a, b)
+    for a in range(8)
+    for b in range(a + 1, 8)
+    if bin(a ^ b).count("1") == 1
+)
 
 
 def cuboid_vertices(size3d, include_center: bool = False) -> np.ndarray:

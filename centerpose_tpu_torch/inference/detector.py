@@ -30,8 +30,12 @@ frame per `run` call. The first frame of a video warps on the host, because
 there is no previous frame yet; every later frame sends the uint8 frame to the
 device, where warp, previous-frame render, network and decode run without a
 fetch in between. `cfg.refined_kalman` puts the CenterPose + Kalman baseline
-tracker behind the image model. Not ported: the debug canvases
-(`render_debug`).
+tracker behind the image model.
+
+Debug canvases: with `debug_level >= 2` a `run` takes the host-warp path and
+keeps the network input, its raw heatmaps and the decoded detections (and the
+tracking model's previous-frame inputs); `render_debug(image, out)` then draws
+the reference's canvas set (`utils/debugger.py`).
 """
 
 from __future__ import annotations
@@ -169,6 +173,9 @@ class Detector:
             load_for_inference(load_model, self.model)
         self.mean = np.array(DATA_MEAN, np.float32).reshape(1, 1, 3)
         self.std = np.array(DATA_STD, np.float32).reshape(1, 1, 3)
+        # >= 2: `run` keeps what `render_debug` draws (demo.py --debug 2).
+        self.debug_level = 0
+        self._debug_raw: Optional[Dict[str, Any]] = None
 
     @property
     def cfg(self) -> CenterPoseConfig:
@@ -566,9 +573,11 @@ class Detector:
             # warp (and for tracking the previous-frame render) runs there,
             # ahead of the network. Multi-scale / fix_short / keep-res runs
             # keep the host warp (non-standard windows); so does a tracking
-            # video's FIRST frame (there is no previous frame to pass yet).
+            # video's FIRST frame (there is no previous frame to pass yet),
+            # and a debug run, which draws the host-warped input.
             fused = (
                 scale == 1.0 and cfg.fix_res and cfg.fix_short <= 0
+                and self.debug_level < 2
                 and not (cfg.tracking_task and self.pre_images is None)
             )
             if fused:
@@ -600,8 +609,10 @@ class Detector:
                 extra = ()
                 if cfg.tracking_task:
                     extra = self._tracking_inputs(images_t, meta_s)
-                _, dets = self._forward_decode(images_t, *extra)
+                outputs, dets = self._forward_decode(images_t, *extra)
             dets = _fetch(dets)  # one transfer; it also waits for the device
+            if self.debug_level >= 2 and scale == 1.0:
+                self._debug_raw = self._debug_maps(images, outputs, dets, extra)
             t2 = time.time()
             times["net"] += t2 - t1
 
@@ -652,6 +663,24 @@ class Detector:
             "times": times,
         }
 
+    @staticmethod
+    def _debug_maps(images: np.ndarray, outputs, dets, extra) -> Dict[str, Any]:
+        """What `render_debug` draws from a host-warp `run` (the canvases of
+        object_pose.py:199-279): the network input, raw heatmaps, decoded
+        detections and, for the tracking model, its previous-frame inputs,
+        all NHWC numpy without the batch axis."""
+        def host(t):
+            return t[0].float().cpu().numpy()
+
+        pre = dict(zip(("pre_img", "pre_hm", "pre_hm_hp"), extra))
+        return {
+            "inp": np.asarray(images[0]),
+            "hm": host(outputs["hm"]),
+            "hm_hp": host(outputs["hm_hp"]) if "hm_hp" in outputs else None,
+            "dets": dets,
+            **{k: host(pre[k]) if k in pre else None for k in ("pre_img", "pre_hm", "pre_hm_hp")},
+        }
+
     def _tracking_inputs(self, images: torch.Tensor, meta: dict):
         """(pre_img, pre_hm, pre_hm_hp) for the host-warp path: the previous
         frame and the heatmaps rendered from the tracker's state
@@ -672,6 +701,80 @@ class Detector:
         self.pre_images = None
         if self.tracker is not None:
             self.tracker.reset()
+
+    # ------------------------------------------------------------------ debug
+    def render_debug(self, image: np.ndarray, out: Dict[str, Any]):
+        """The reference detector's debug canvases (`ObjectPoseDetector.debug`
+        object_pose.py:199-279 + `show_results` :281-313): heatmap blends over
+        the warped network input, decoded-keypoint views, and the final
+        image-space render with PnP cuboids, scale text, and object axes.
+
+        The network-side canvases need a prior `run` with `debug_level >= 2`
+        (it keeps the raw maps). Returns the `Debugger` (canvases in `.imgs`;
+        `save_all_imgs` to dump)."""
+        from centerpose_tpu_torch.utils.debugger import Debugger
+
+        cfg = self.cfg
+        raw = self._debug_raw
+        dbg = Debugger(down_ratio=cfg.down_ratio)
+
+        if raw is not None:
+            inp = ((raw["inp"] * self.std + self.mean) * 255.0).clip(0, 255).astype(np.uint8)
+            sig = 1.0 / (1.0 + np.exp(-raw["hm"]))
+            dbg.add_blend_img(inp, dbg.gen_colormap(sig, inp.shape[:2]), "out_hm_pred")
+            dets = raw["dets"]
+            r = cfg.down_ratio
+            shown = [k for k in range(dets["scores"].shape[1])
+                     if dets["scores"][0, k, 0] > cfg.vis_thresh]
+            for k in shown:
+                dbg.add_coco_bbox(dets["bboxes"][0, k] * r, 0, dets["scores"][0, k, 0],
+                                  show_txt=False, img_id="out_hm_pred")
+            if raw["hm_hp"] is not None:
+                sig_hp = 1.0 / (1.0 + np.exp(-raw["hm_hp"]))
+                dbg.add_blend_img(inp, dbg.gen_colormap_hp(sig_hp, inp.shape[:2]), "out_hmhp_pred")
+                for k in shown:
+                    dbg.add_coco_hp(dets["kps_displacement_mean"][0, k] * r, img_id="out_hmhp_pred")
+            # Decoded keypoint estimates: displacement (pred) vs heatmap (extra).
+            dbg.add_img(inp, "out_kps_processed_pred")
+            for k in shown:
+                dbg.add_coco_hp(dets["kps_displacement_mean"][0, k] * r,
+                                img_id="out_kps_processed_pred")
+                hm_kps = np.asarray(dets["kps_heatmap_mean"][0, k], np.float64)
+                hm_kps = np.where(hm_kps <= -10000, -10000.0, hm_kps * r)
+                dbg.add_coco_hp(hm_kps, img_id="out_kps_processed_pred", pred_flag="extra")
+            if "tracking" in dets:
+                dbg.add_img(inp, "out_tracking_pred")
+                for k in shown:
+                    bb = dets["bboxes"][0, k] * r
+                    ct = [(bb[0] + bb[2]) / 2, (bb[1] + bb[3]) / 2]
+                    dbg.add_arrow(ct, dets["tracking"][0, k] * r, "out_tracking_pred",
+                                  c=(255, 255, 0))
+            if raw["pre_img"] is not None:
+                pre_img = ((raw["pre_img"] * self.std + self.mean) * 255.0).clip(0, 255).astype(np.uint8)
+                if raw["pre_hm"] is not None:
+                    dbg.add_blend_img(pre_img, dbg.gen_colormap(raw["pre_hm"], pre_img.shape[:2]),
+                                      "pre_hm")
+                if raw["pre_hm_hp"] is not None:
+                    dbg.add_blend_img(pre_img, dbg.gen_colormap_hp(raw["pre_hm_hp"], pre_img.shape[:2]),
+                                      "pre_hmhp")
+
+        # Final image-space render (show_results, object_pose.py:281-313).
+        dbg.add_img(np.asarray(image, np.uint8), "out_img_pred")
+        h, w = np.asarray(image).shape[:2]
+        camera = DEFAULT_CAMERA
+        if out.get("meta") and "camera_matrix" in out["meta"]:
+            camera = np.asarray(out["meta"]["camera_matrix"], np.float64)
+        for det in out.get("results", []):
+            dbg.add_coco_bbox(det["bbox"], 0, det["score"], img_id="out_img_pred")
+            dbg.add_coco_hp(det["kps"], img_id="out_img_pred")
+        for proj9, pts3d, obj_scale, _, det in out.get("boxes", ()):
+            proj = np.asarray(proj9, np.float64)[1:].copy()
+            proj[:, 0] *= w
+            proj[:, 1] *= h
+            dbg.add_coco_hp(proj, img_id="out_img_pred", pred_flag="pnp")
+            dbg.add_obj_scale(det["bbox"], obj_scale, img_id="out_img_pred", pred_flag="pnp")
+            dbg.add_axes(np.asarray(pts3d, np.float64), camera, img_id="out_img_pred")
+        return dbg
 
     def _batch_submit(self, images: List[np.ndarray],
                       metas: Optional[List[dict]] = None,

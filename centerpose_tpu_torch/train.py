@@ -19,9 +19,13 @@ CenterPose checkpoint by name and shape, the stems and tracking heads kept
 at init (the main_CenterPoseTrack flow).
 
 Flags keep the JAX CLI's names and defaults. Added: `--device` (default
-cuda; asked for cuda on a host without one, it raises). Refused, each named
-by the ROADMAP.md queue A item it waits for: `--debug > 0` (debug canvases
-and webcam), `--num_devices > 1` (side ops and scale-out). Accepted and ignored:
+cuda; asked for cuda on a host without one, it raises). Refused, named by
+the ROADMAP.md queue A item it waits for: `--num_devices > 1` (side ops and
+scale-out). `--debug > 0`: on the first batch of every epoch, before its
+step, one eval-mode forward on the device; the reference's pred/GT canvases
+of its first sample (`training/debug.py`) go to
+`exp/<arch>/<exp_id>/debug/e<epoch>_<canvas>.png` and to the TensorBoard
+stream. Accepted and ignored:
 `--dcn_bwd` and `--dcn_impl`, the JAX package's TPU knobs: this package has
 one DCN forward kernel and one backward kernel template, chosen by the
 tensors' device and type.
@@ -34,15 +38,17 @@ Experiment directory `exp/<arch>/<exp_id>/` (relative to the working
 directory, as the JAX CLI's): `opt.txt`, `log.txt`, `scalars.jsonl`, `tb/`,
 and checkpoints (`utils/checkpoint.py`) under `ckpt/<step>/` (every epoch),
 `best/<step>/` (lowest validation loss) and `epoch_<N>/<step>/` (every
-`--save_intervals` epochs). `main(argv)` returns a summary (the final step,
-the per-epoch mean losses, ms per step and the share of it spent waiting
-for the loader) for callers that run it in process.
+`--save_intervals` epochs), and at the end `summary.json`: the summary
+`main(argv)` also returns (the final step, the per-epoch mean losses, ms per
+step and the share of it spent waiting for the loader; the debug canvases'
+time is left out of the steps' and reported apart).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 
@@ -53,8 +59,11 @@ from centerpose_tpu_torch.config import preset
 from centerpose_tpu_torch.data.dataset import ObjectPoseDataset
 from centerpose_tpu_torch.data.loader import DataLoader
 from centerpose_tpu_torch.models.factory import create_model
+from centerpose_tpu_torch.training.debug import render_train_debug, save_train_debug
 from centerpose_tpu_torch.training.trainer import (
     create_train_state,
+    debug_forward,
+    decode_wire_np,
     make_eval_step,
     make_train_step,
 )
@@ -97,8 +106,8 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32",
                    help="bfloat16: mixed precision (float32 parameters, optimizer and loss)")
     p.add_argument("--debug", type=int, default=0,
-                   help="debug canvases: not ported (ROADMAP.md queue A, debug canvases and webcam), "
-                        "only 0")
+                   help="> 0: the pred/GT debug canvases of each epoch's first batch, "
+                        "under <exp_dir>/debug/")
     p.add_argument("--mug", action="store_true",
                    help="cup category: train the non-symmetric mug sub-model")
     p.add_argument("--use_residual", action="store_true",
@@ -112,9 +121,6 @@ def parse_args(argv=None):
                    help="motion blur / downscale / gaussian noise before the affine warp")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
-    if args.debug > 0:
-        p.error("--debug > 0 (debug canvases) is not ported to centerpose_tpu_torch "
-                "(ROADMAP.md queue A, debug canvases and webcam)")
     if args.num_devices > 1:
         p.error("--num_devices > 1: multi-GPU training is not ported to centerpose_tpu_torch "
                 "(ROADMAP.md queue A, side ops and scale-out)")
@@ -195,7 +201,7 @@ def _train(args, cfg, device, exp_dir, logger) -> dict:
     metadata = {"config": dataclasses.asdict(cfg)}
 
     best = float("inf")
-    epochs, step_ms, wait_ms = [], [], []
+    epochs, step_ms, wait_ms, debug_ms = [], [], [], []
     for epoch in range(start_epoch + 1, cfg.num_epochs + 1):
         t0 = time.time()
         agg = {}
@@ -208,10 +214,15 @@ def _train(args, cfg, device, exp_dir, logger) -> dict:
             t_step = time.perf_counter()
             if batch is None:
                 break
+            t_run = t_step
+            if args.debug > 0 and n_steps == 0:
+                _debug_canvases(cfg, model, batch, epoch, exp_dir, logger)
+                t_run = time.perf_counter()
+                debug_ms.append((t_run - t_step) * 1e3)
             state, stats = step_fn(state, batch)
             stats = _fetch(stats)               # one fetch, which waits for the step
             wait_ms.append((t_step - t_wait) * 1e3)
-            step_ms.append((time.perf_counter() - t_wait) * 1e3)
+            step_ms.append((t_step - t_wait + time.perf_counter() - t_run) * 1e3)
             n_steps += 1
             for k, v in stats.items():
                 agg[k] = agg.get(k, 0.0) + v
@@ -243,8 +254,22 @@ def _train(args, cfg, device, exp_dir, logger) -> dict:
 
     logger.write("training done")
     total = sum(step_ms)
-    return {"exp_dir": exp_dir, "step": state.step, "epochs": epochs, "ms_per_step": step_ms,
-            "loader_wait_ms": wait_ms, "loader_wait_share": sum(wait_ms) / total if total else 0.0}
+    summary = {"exp_dir": exp_dir, "step": state.step, "epochs": epochs, "ms_per_step": step_ms,
+               "loader_wait_ms": wait_ms, "loader_wait_share": sum(wait_ms) / total if total else 0.0,
+               "debug_ms": debug_ms}
+    with open(os.path.join(exp_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return summary
+
+
+def _debug_canvases(cfg, model, batch, epoch, exp_dir, logger) -> None:
+    """`--debug > 0`: the canvases of one batch before its step
+    (trains/object_pose.py:218-401)."""
+    imgs = render_train_debug(decode_wire_np(batch), debug_forward(cfg, model, batch), cfg)
+    save_train_debug(imgs, os.path.join(exp_dir, "debug"), f"e{epoch}_")
+    for name, img in imgs.items():
+        logger.image(epoch, f"debug/{name}", img)
+    logger.write(f"debug canvases saved: {sorted(imgs)}")
 
 
 if __name__ == "__main__":

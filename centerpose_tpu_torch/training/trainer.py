@@ -43,6 +43,7 @@ import contextlib
 import dataclasses
 from typing import Callable, Dict, Iterable, List, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -66,6 +67,13 @@ def decode_wire(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if v is not None and v.dtype == torch.uint8:
             out[k] = v.to(torch.float32) / 255.0
     return out
+
+
+def decode_wire_np(batch) -> Dict[str, np.ndarray]:
+    """Host-side `decode_wire` for the debug renderers: numpy arrays in and
+    out, the same float32 arithmetic on CPU tensors."""
+    decoded = decode_wire({k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()})
+    return {k: v.numpy() for k, v in decoded.items()}
 
 
 def make_lr_schedule(cfg: CenterPoseConfig) -> Callable[[int], Callable[[int], float]]:
@@ -254,3 +262,20 @@ def make_eval_step(cfg: CenterPoseConfig, model: nn.Module):
         return stats
 
     return eval_fn
+
+
+def debug_forward(cfg: CenterPoseConfig, model: nn.Module, batch) -> Dict[str, np.ndarray]:
+    """The network's head maps for one batch as `train.py --debug` draws
+    them (`training/debug.py`): an eval-mode forward (running statistics) on
+    the model's device in the step's compute type, fetched as float32 NHWC
+    numpy arrays."""
+    device = _device_of(model)
+    batch = _to_device(batch, device)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), _compute(cfg, device):
+            outputs = _forward(cfg, model, batch)
+    finally:
+        model.train(was_training)
+    return {k: v.float().cpu().numpy() for k, v in outputs.items()}

@@ -9,9 +9,11 @@ data) at the full width of the flagship model (dlav1_34 at 512x512, random
 weights from seed 0), its video-tracking path with the CenterPoseTrack
 model (dla_34 at 512x512, one frame per call) and that model's training
 (its steps, `train.py --tracking_task`, its validation loss), its evaluation CLI (AP of
-both models over generated frames, and the validation loss), and the other
+both models over generated frames, and the validation loss), the other
 architectures (res_18, resdcn_18, dlav0_34, hourglass at 512x512, served
-and trained) through the entry points a user calls, builds the CUDA
+and trained) and the closed accuracy loop (the flagship trained from
+zero-initialised DCN offsets, its offsets probed, evaluated, and the debug
+canvases of the train and demo CLIs) through the entry points a user calls, builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and shows that every path really went through
 them. Every phase prints one JSON line; a phase
@@ -217,6 +219,38 @@ Phases:
            against the plain DCN at 128x128 (the train phase's bounds), and
            its kernels' share of each step is computed from this run's
            per-call times. One line per architecture.
+  accuracy The closed accuracy loop on the flagship at full width
+           (`preset("centerpose")` = dlav1_34 at 512x512), in process, with
+           a fresh process's TF32 switches: `python -m
+           centerpose_tpu_torch.scripts.accuracy_loop --in_process`
+           generates 8 training videos x 16 frames (seed 0) and 2 held-out
+           videos x 8 frames (seed 777) at 480x480, probes the DCN offsets
+           of a fresh model on 8 held-out frames, trains from the
+           zero-initialised offset convs (bf16 mixed precision, batch 16, lr
+           1e-3, ACC_EPOCHS epochs of 8 steps, validation every 4 epochs, 4
+           loader threads, `--debug 1`), evaluates the `best` checkpoint in
+           float32 on the 16 held-out frames (`--mode metric`) and probes
+           it; then `python -m centerpose_tpu_torch.demo --debug 2` on 2
+           held-out frames with that checkpoint. Every counter is set to 0
+           before the loop and read after the demo; DCN calls are counted by
+           shape. Required: the last epoch's mean training loss at least
+           ACC_LOSS_FALL below the first's; at init all 16 layers' offsets
+           exactly 0 and gates exactly 0.5, after training a mean |offset|
+           > 0 and a gate deviation > 0 in every layer; 16 bf16 forward and
+           16 bf16 fused backward launches a step (and 16 bf16 forward
+           launches a validation batch and a debug forward), 16 float32
+           forward launches per evaluated image, probe batch and demo frame,
+           no other backward launch, every call at PRODUCTION_SHAPES; the
+           first training step's first DCN call (16x16, 512 -> 256, batch
+           16, a grid no other phase launches) held, forward and fused
+           backward on its own operands and cotangent, against the plain
+           versions at the bf16 tolerances (after the counts are read); the
+           report's 7 AP families finite and its num_gt the held-out set's
+           object count; the train CLI's 7 canvases for every epoch and the
+           demo's 4 canvases, each of the network input's or the frame's
+           size. ms per step, images/s, loader-wait share, loss by epoch,
+           the APs (printed, not required: ~96 steps from scratch) and the
+           probe's overall numbers at init and after.
 
 Bounds: float32 operations are counted at the rate of float32-accurate
 products on the tensor cores (3xTF32: a third of 495 TFLOP/s), bf16 at 989
@@ -2672,6 +2706,207 @@ def phase_kernels_r50():
           "totals": "not part of the 16-call totals", **out})
 
 
+# ---------------------------------------------------------------- accuracy
+ACC_TRAIN = (8, 16)                        # training videos x frames, seed 0
+ACC_VAL = (2, 8)                           # held-out videos x frames, seed 777
+ACC_IMG = 480                              # generated frames are ACC_IMG x ACC_IMG
+ACC_BATCH = 16
+ACC_LR = 1e-3
+ACC_EPOCHS = 12
+ACC_VAL_INTERVALS = 4
+ACC_WORKERS = 4
+ACC_DEMO_FRAMES = 2
+ACC_LOSS_FALL = 0.25                       # the last epoch's loss <= (1 - this) x the first's
+TRAIN_CANVASES = ("out_hm_pred", "out_hm_gt", "out_hmhp_pred", "out_hmhp_gt",
+                  "out_img_pred", "out_img_gt", "out_pred_gt_blend")
+DEMO_CANVASES = ("out_hm_pred", "out_hmhp_pred", "out_kps_processed_pred", "out_img_pred")
+
+
+def object_count(root: str) -> int:
+    """Objects annotated in the DOPE-style frames under `root`."""
+    n = 0
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".json"):
+                with open(os.path.join(dirpath, name)) as fh:
+                    n += len(json.load(fh)["objects"])
+    return n
+
+
+def image_size(path: str):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.size
+
+
+def check_step_forward(record: dict) -> dict:
+    """The forward kernel at the recorded DCN call against the plain version
+    (bf16 operands: TOL_BF16_REL of the output's largest magnitude)."""
+    args = record["args"]
+    err, ref_max = check_case(args, args[0].dtype)
+    require(err <= TOL_BF16_REL * ref_max,
+            f"step forward at the step's operands: off by {err}, limit {TOL_BF16_REL * ref_max}")
+    return {"max_abs_err": err, "output_max": ref_max, "tolerance_rel": TOL_BF16_REL}
+
+
+def phase_accuracy(per_forward):
+    """The closed accuracy loop (see the module docstring): trains the
+    flagship from zero-initialised DCN offsets and shows that the offsets
+    and gates leave their initial point, through the kernels."""
+    import shutil
+    import tempfile
+
+    from centerpose_tpu_torch import demo as demo_cli
+    from centerpose_tpu_torch.scripts import accuracy_loop
+
+    torch.cuda.empty_cache()
+    fused = dcn_bwd.dcn_v2_bwd_fused
+    cwd = os.getcwd()
+    t_phase = time.time()
+    out = {"phase": "accuracy", "arch": "dlav1_34", "input_res": INPUT, "batch": ACC_BATCH}
+    argv = ["--in_process", "--device", "cuda", "--arch", "dlav1_34", "--input_res", str(INPUT),
+            "--batch_size", str(ACC_BATCH), "--lr", str(ACC_LR), "--num_epochs", str(ACC_EPOCHS),
+            "--train_videos", str(ACC_TRAIN[0]), "--train_frames", str(ACC_TRAIN[1]),
+            "--val_videos", str(ACC_VAL[0]), "--val_frames", str(ACC_VAL[1]),
+            "--img_size", str(ACC_IMG), "--compute_dtype", "bfloat16",
+            "--val_intervals", str(ACC_VAL_INTERVALS), "--num_workers", str(ACC_WORKERS),
+            "--debug", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_accuracy_") as tmp:
+        os.chdir(tmp)
+        script_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS
+        reset_launches()
+        all_fwd = Counter()
+        global_hook = count_all_dcn_shapes(all_fwd)
+        record = {}
+        undo = spy_dcn_call(record)
+        try:
+            t0 = time.time()
+            artifact = accuracy_loop.main(argv)
+            loop_s = time.time() - t0
+            loop = {"fwd": dcn_v2_forward.launches, "fwd_bf16": dcn_v2_forward.launches_bf16,
+                    "bwd": fused.launches, "bwd_bf16": fused.launches_bf16,
+                    "others": sum(fn.launches for name, (fn, *_r) in BWD_KERNELS.items()
+                                  if name != "dcn_v2_bwd_fused")}
+            val_dir = os.path.join("exp", "accuracy", "data_val")
+            frames = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(val_dir) for f in fs
+                            if f.endswith(".png"))[:ACC_DEMO_FRAMES]
+            demo_in = os.path.join(tmp, "demo_in")
+            os.makedirs(demo_in)
+            for f in frames:
+                shutil.copy(f, os.path.join(demo_in, os.path.basename(os.path.dirname(f)) + "_"
+                                            + os.path.basename(f)))
+            demo_out = os.path.join(tmp, "demo_out")
+            t0 = time.time()
+            demo_cli.main(["--demo", demo_in, "--arch", "dlav1_34", "--input_res", str(INPUT),
+                           "--load_model", os.path.join("exp", "dlav1_34", accuracy_loop.EXP_ID, "best"),
+                           "--out_dir", demo_out, "--debug", "2", "--device", "cuda"])
+            demo_s = time.time() - t0
+        finally:
+            undo()
+            global_hook.remove()
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+            os.chdir(cwd)
+        counts = {"dcn_v2_fwd": dcn_v2_forward.launches, "dcn_v2_fwd_bf16": dcn_v2_forward.launches_bf16,
+                  "dcn_v2_bwd_fused": fused.launches,
+                  "dcn_v2_bwd_fused_bf16": fused.launches_bf16}              # ---- the main path ends
+
+        # What the loop ran: its steps, validation batches and debug forwards
+        # (bf16), its evaluated images and two probe batches (float32).
+        n_train = ACC_TRAIN[0] * ACC_TRAIN[1]
+        n_val = ACC_VAL[0] * ACC_VAL[1]
+        steps = (n_train // ACC_BATCH) * ACC_EPOCHS
+        val_batches = -(-n_val // ACC_BATCH) * (ACC_EPOCHS // ACC_VAL_INTERVALS)
+        require(artifact["steps"] == steps, f"accuracy loop: {artifact['steps']} steps, {steps} expected")
+        require(loop["bwd_bf16"] == loop["bwd"] == 16 * steps and loop["others"] == 0,
+                f"accuracy loop: {loop} launches, {16 * steps} bf16 fused backward expected")
+        require(loop["fwd_bf16"] == 16 * (steps + val_batches + ACC_EPOCHS),
+                f"accuracy loop: {loop['fwd_bf16']} bf16 forward launches for {steps} steps, "
+                f"{val_batches} validation batches and {ACC_EPOCHS} debug forwards")
+        require(loop["fwd"] - loop["fwd_bf16"] == 16 * (n_val + 2),
+                f"accuracy loop: {loop['fwd'] - loop['fwd_bf16']} float32 forward launches for "
+                f"{n_val} evaluated images and 2 probe batches")
+        demo_fwd = counts["dcn_v2_fwd"] - loop["fwd"]
+        require(counts["dcn_v2_fwd_bf16"] == loop["fwd_bf16"] and demo_fwd == 16 * ACC_DEMO_FRAMES
+                and counts["dcn_v2_bwd_fused"] == loop["bwd"],
+                f"demo --debug 2: {demo_fwd} float32 forward launches for {ACC_DEMO_FRAMES} frames ({counts})")
+        n_forwards = counts["dcn_v2_fwd"] // 16
+        require(set(all_fwd) <= set(per_forward)
+                and all(all_fwd[shape] == n * n_forwards for shape, n in per_forward.items()),
+                f"accuracy: DCN calls by shape {dict(all_fwd)}, {n_forwards} forwards of {per_forward}")
+
+        # The loss falls; every DCN layer leaves exactly 0 offsets and 0.5 gates.
+        losses = artifact["loss_by_epoch"]
+        require(all(np.isfinite(v) for v in losses) and losses[-1] <= (1 - ACC_LOSS_FALL) * losses[0],
+                f"accuracy: the training loss did not fall by {ACC_LOSS_FALL}: {losses}")
+        probe = artifact["dcn_offset_probe"]
+        for tag in ("init", "trained"):
+            require(probe[tag]["overall"]["n_dcn_layers"] == 16 == len(probe[tag]["layers"]),
+                    f"probe {tag}: {probe[tag]['overall']}")
+        for name, st in probe["init"]["layers"].items():
+            require(st["offset_abs_max"] == 0.0 and st["mask_mean"] == 0.5 and st["mask_dev_from_half_mean"] == 0.0,
+                    f"probe at init, {name}: {st}")
+        for name, st in probe["trained"]["layers"].items():
+            require(st["offset_abs_mean"] > 0.0 and st["mask_dev_from_half_mean"] > 0.0,
+                    f"probe after training, {name}: the layer kept its initial offsets or gates: {st}")
+
+        # The rest of the chain: the report, the train CLI's and the demo's canvases.
+        report_path = os.path.join(tmp, "exp", "accuracy", "report.json")
+        with open(report_path) as fh:
+            report = json.load(fh)
+        require(len(artifact["ap"]) == 7 and all(np.isfinite(v) for v in artifact["ap"].values()),
+                f"accuracy: AP families {artifact['ap']}")
+        n_gt = object_count(os.path.join(tmp, val_dir))
+        require(report["num_gt"] == n_gt, f"accuracy: num_gt {report['num_gt']}, {n_gt} objects held out")
+        debug_dir = os.path.join(tmp, "exp", "dlav1_34", accuracy_loop.EXP_ID, "debug")
+        for epoch in range(1, ACC_EPOCHS + 1):
+            for canvas in TRAIN_CANVASES:
+                path = os.path.join(debug_dir, f"e{epoch}_{canvas}.png")
+                require(os.path.isfile(path) and image_size(path) == (INPUT, INPUT),
+                        f"train --debug 1: {path} missing or not {INPUT}x{INPUT}")
+        demo_canvases = {}
+        for f in sorted(os.listdir(demo_in)):
+            base = os.path.splitext(f)[0]
+            for canvas in DEMO_CANVASES:
+                path = os.path.join(demo_out, "debug", f"{base}_{canvas}.png")
+                size = (ACC_IMG, ACC_IMG) if canvas == "out_img_pred" else (INPUT, INPUT)
+                require(os.path.isfile(path) and image_size(path) == size,
+                        f"demo --debug 2: {path} missing or not {size}")
+                demo_canvases[canvas] = list(size)
+            require(os.path.isfile(os.path.join(demo_out, base + ".png")), f"demo --debug: no {base}.png")
+
+    # The B=16 grid of the first step's first DCN call, held after the counts are read.
+    x = record["args"][0]
+    require(tuple(x.shape) == (ACC_BATCH, INPUT // 32, INPUT // 32, 512) and record["args"][3].shape[-1] == 256
+            and x.dtype == torch.bfloat16, f"accuracy: the recorded DCN call is {tuple(x.shape)} {x.dtype}")
+    out["step_vs_plain"] = {"forward": check_step_forward(record),
+                            "backward": check_step_backward(record, "bfloat16")}
+    del record
+    torch.cuda.empty_cache()
+    out.update({
+        "data": {"train_frames": n_train, "heldout_frames": n_val, "size": [ACC_IMG, ACC_IMG],
+                 "heldout_objects": n_gt, "seconds": artifact["protocol"]["data_s"]},
+        "command": "python -m centerpose_tpu_torch.scripts.accuracy_loop " + " ".join(argv),
+        "steps": steps, "epochs": ACC_EPOCHS, "lr": ACC_LR, "loss_by_epoch": losses,
+        "val_loss_by_epoch": artifact["val_loss_by_epoch"],
+        "loss_fall": 1 - losses[-1] / losses[0],
+        "ms_per_step": artifact["ms_per_step"], "ms_per_step_mean": artifact["ms_per_step_mean"],
+        "images_per_s": artifact["images_per_s"], "loader_wait_share": artifact["loader_wait_share"],
+        "debug_ms": artifact["debug_ms"],
+        "train_s": artifact["protocol"]["train_wall_s"], "eval_s": artifact["protocol"]["eval_wall_s"],
+        "ap": artifact["ap"], "num_gt": report["num_gt"], "num_pred": report["num_pred"],
+        "probe": {tag: probe[tag]["overall"] for tag in ("init", "trained")},
+        "probe_layers_trained": probe["trained"]["layers"],
+        "demo": {"frames": ACC_DEMO_FRAMES, "seconds": demo_s, "canvases": demo_canvases},
+        "loop_s": loop_s, "launches": counts,
+        "launches_by_shape": {"x".join(map(str, k)): v for k, v in all_fwd.items()},
+        "seconds": time.time() - t_phase,
+    })
+    emit(out)
+    return all_fwd, counts
+
+
 def backward_entries(bwd_per_shape, per_forward, counts, dtype="float32"):
     """One entry per backward kernel (a bf16 body's named with `_bf16`):
     error the worst over the 7 shapes, times and bound summed over the 16
@@ -2776,6 +3011,7 @@ def main() -> int:
     eval_counts = phase_evaluate()
     phase_kernels_r50()
     archs_fwd, archs_fused = phase_archs(entries, bwd_per_shape, bwd_bf16_per_shape)
+    acc_fwd, acc_counts = phase_accuracy(per_forward)
 
     # All counts are this run's: one forward of the model phase, the serve
     # phase's four forwards (3 `run` + 1 `run_batch`), the train phase's steps.
@@ -2797,6 +3033,8 @@ def main() -> int:
         e["launches_train_track"] = track_train_fwd.get((hw, c, co), 0)
         require(e["launches_train_track"] > 0,
                 f"the tracking training path never launched the kernel at {e['shape']}")
+        e["launches_accuracy"] = acc_fwd.get((hw, c, co), 0)
+        require(e["launches_accuracy"] > 0, f"the accuracy loop never launched the kernel at {e['shape']}")
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
     require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
             "training launches by shape do not add up to the counter")
@@ -2808,6 +3046,8 @@ def main() -> int:
             "the evaluate phase's image-model launches are not all at production shapes")
     require(sum(e["launches_train_track"] for e in entries) == track_train_counts["dcn_v2_fwd"],
             "the tracking training path's launches by shape do not add up to the counter")
+    require(sum(e["launches_accuracy"] for e in entries) == acc_counts["dcn_v2_fwd"],
+            "the accuracy loop's launches by shape do not add up to the counter")
     fused_entries = {dt: backward_entries(rows, per_forward, counts, dt) for dt, rows, counts in (
         ("float32", bwd_per_shape, train_counts), ("bfloat16", bwd_bf16_per_shape, train_bf16_counts))}
     for dt, rows in fused_entries.items():
@@ -2818,6 +3058,9 @@ def main() -> int:
         entry["launches_train_track"] = n_bf16 if dt == "bfloat16" else track_train_counts["dcn_v2_bwd_fused"] - n_bf16
         require(entry["launches_train_track"] > 0,
                 f"the tracking training path never launched the fused backward ({dt})")
+        if dt == "bfloat16":
+            entry["launches_accuracy"] = acc_counts["dcn_v2_bwd_fused_bf16"]
+            require(entry["launches_accuracy"] > 0, "the accuracy loop never launched the bf16 fused backward")
     row_entry = row_kernel_entry(entries, per_forward, track_launches)
     for row in row_entry["per_shape"]:
         _, hw, _, c, co = row["shape"]

@@ -279,7 +279,9 @@ def test_port_imports_no_jax():
                    "models/resnet.py", "models/hourglass.py", "training/oracle.py",
                    "evaluation/metrics.py", "evaluation/iou3d.py", "evaluation/mobilepose.py",
                    "evaluation/relabel.py", "evaluation/evaluator.py", "data/objectron_pb.py",
-                   "evaluate.py", "native/__init__.py"):
+                   "evaluate.py", "native/__init__.py", "utils/debugger.py", "utils/visualize.py",
+                   "training/debug.py", "data/webcam.py", "scripts/__init__.py",
+                   "scripts/probe_dcn_offsets.py", "scripts/accuracy_loop.py"):
         assert f"centerpose_tpu_torch/{module}" in names, module
     # The 3D IoU library is built from the package's own copy of the source.
     from centerpose_tpu_torch import native
