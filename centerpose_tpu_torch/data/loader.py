@@ -19,6 +19,14 @@ core; `mode="process"` uses spawn-based worker processes for multi-core hosts.
 
 The PyTorch package's own copy of `centerpose_tpu/data/loader.py`: the same
 order, shuffles, worker RNG streams and error paths.
+
+Data parallel (`rank`, `world` > 1; `train.py --num_devices`): every rank
+draws the same global index batches (the permutation of `seed + epoch`) and
+loads rows [rank*B/world, (rank+1)*B/world) of each, the rows
+`parallel/mesh.py::shard_batch` gives it, with its own rng streams; rank 0's
+streams are those of a one-process loader. It yields one item per global
+batch, `None` where its slice lost every sample (or is empty, in the short
+last batch of `drop_last=False`), so that the ranks stay in step.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ class DataLoader:
         drop_last: bool = True,
         collate_fn: Callable = collate_filtered,
         mode: str = "thread",
+        rank: int = 0,
+        world: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -54,6 +64,11 @@ class DataLoader:
         self.drop_last = drop_last
         self.collate_fn = collate_fn
         self.mode = mode
+        self.rank = int(rank)
+        self.world = int(world)
+        if self.batch_size % self.world:
+            raise ValueError(f"DataLoader: batch_size {self.batch_size} is not a multiple of "
+                             f"the world size {self.world}")
         self._epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -66,7 +81,16 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     # ------------------------------------------------------------------ sampler
-    def _index_batches(self) -> Sequence[np.ndarray]:
+    def index_batches(self) -> Sequence[np.ndarray]:
+        """This epoch's index batches: the global batches, or with `world`
+        > 1 this rank's slice of each."""
+        batches = self._global_batches()
+        if self.world == 1:
+            return batches
+        per = self.batch_size // self.world
+        return [b[self.rank * per:(self.rank + 1) * per] for b in batches]
+
+    def _global_batches(self) -> Sequence[np.ndarray]:
         n = len(self.dataset)
         if self.shuffle:
             order = np.random.RandomState(self.seed + self._epoch).permutation(n)
@@ -79,13 +103,15 @@ class DataLoader:
             if not self.drop_last or i + self.batch_size <= n
         ]
 
+    def _worker_seed(self, worker_id: int) -> int:
+        return (self.seed + 1000 * (self._epoch + 1) + self.rank * max(1, self.num_workers)
+                + worker_id)
+
     def _worker_dataset(self, worker_id: int):
         """Private shallow copy with an independent, reproducible rng stream."""
         ds = copy.copy(self.dataset)
         if hasattr(ds, "rng"):
-            ds.rng = np.random.RandomState(
-                self.seed + 1000 * (self._epoch + 1) + worker_id
-            )
+            ds.rng = np.random.RandomState(self._worker_seed(worker_id))
         return ds
 
     def _load_batch(self, ds, indices) -> Optional[dict]:
@@ -102,12 +128,12 @@ class DataLoader:
 
     # ------------------------------------------------------------------ iterate
     def __iter__(self) -> Iterator[dict]:
-        batches = self._index_batches()
+        batches = self.index_batches()
         if self.num_workers <= 0:
             ds = self._worker_dataset(0)
             for idxs in batches:
                 out = self._load_batch(ds, idxs)
-                if out is not None:
+                if out is not None or self.world > 1:
                     yield out
             return
         if self.mode == "process":
@@ -165,7 +191,7 @@ class DataLoader:
                     raise RuntimeError(
                         f"DataLoader worker failed on batch {bi}"
                     ) from out.exc
-                if out is not None:
+                if out is not None or self.world > 1:
                     yield out
         finally:
             stop.set()
@@ -192,7 +218,7 @@ class DataLoader:
                 args=(self.dataset, self.collate_fn,
                       [(bi, np.asarray(batches[bi]))
                        for bi in range(w, len(batches), self.num_workers)],
-                      queues[w], self.seed + 1000 * (self._epoch + 1) + w),
+                      queues[w], self._worker_seed(w)),
                 daemon=True,
             )
             for w in range(self.num_workers)
@@ -218,7 +244,7 @@ class DataLoader:
                     raise RuntimeError(
                         f"DataLoader worker {w} failed on batch {bi}: {out}"
                     )
-                if out is not None:
+                if out is not None or self.world > 1:
                     yield out
         finally:
             for p in procs:

@@ -10,14 +10,18 @@ Parity target: `DLASeg` (pose_dla_dcn.py:457-570) with `down_ratio=4`,
     step1 → {hm_hp, hp_offset, hps, hps_uncertainty}
     step2 → {scale, scale_uncertainty}
 
+and with `tracking_task` (dlav1 + tracking, :545-556, an idea the reference
+marks as untried; `preset("centerpose_track", arch="dlav1_34")`), 4 steps:
+step0 → {tracking, tracking_hp}, then the image groups at steps 1-3. A group
+with no head present keeps its step: `preset("centerpose",
+tracking_task=True)`, which has no tracking heads, reads steps 1-3.
+
 Without convGRU (`dla_34`) every head reads the final stride-4 feature. That
 includes the tracking model (`preset("centerpose_track")`: dla_34 with
 `tracking_task`), whose `tracking` (2) and `tracking_hp` (16) heads read it
 too, and whose trunk takes the previous frame (`pre_img`), its rendered
 center heatmap (`pre_hm`) and its keypoint heatmaps (`pre_hm_hp`) through
-stems of their own (`models/dla.py`). The 4-step GRU routing that the
-reference keeps for dlav1 + tracking (`_GRU_GROUPS_TRACK` of the JAX package,
-an idea the reference marks as untried) is not ported and raises.
+stems of their own (`models/dla.py`), with or without convGRU.
 
 `forward` takes NHWC batches ([B, H, W, 3] image; previous-frame inputs
 [B, H, W, 3 / 1 / 8]) and returns a dict of NHWC head maps at stride 4, like
@@ -49,19 +53,14 @@ _GRU_GROUPS_IMAGE = (
     ("hm_hp", "hp_offset", "hps", "hps_uncertainty"),
     ("scale", "scale_uncertainty"),
 )
+_GRU_GROUPS_TRACK = (("tracking", "tracking_hp"),) + _GRU_GROUPS_IMAGE
 
 
 class CenterPoseNet(nn.Module):
-    """dla_34 / dlav1_34 CenterPose model (image model, or the dla_34 tracking
-    model)."""
+    """dla_34 / dlav1_34 CenterPose model, image or tracking model."""
 
     def __init__(self, config: CenterPoseConfig):
         super().__init__()
-        if config.tracking_task and config.use_conv_gru:
-            raise NotImplementedError(
-                "the dlav1 + tracking 4-step GRU routing is not ported; the "
-                "tracking model is dla_34 (preset 'centerpose_track'), see ROADMAP.md"
-            )
         self.config = config
         channels = DLA34_CHANNELS
         self.base = DLA(tracking=config.tracking_task)
@@ -75,6 +74,7 @@ class CenterPoseNet(nn.Module):
         feat = channels[FIRST_LEVEL]
         if self.use_gru:
             self.convGRU = ConvGRU(feat, steps=config.gru_steps, hidden=GRU_HIDDEN)
+            self.gru_groups = _GRU_GROUPS_TRACK if config.tracking_task else _GRU_GROUPS_IMAGE
             feat = GRU_HIDDEN
         self.head_names = tuple(config.heads)
         for name, classes in config.heads.items():
@@ -103,7 +103,7 @@ class CenterPoseNet(nn.Module):
         out: Dict[str, torch.Tensor] = {}
         if self.use_gru:
             states = self.convGRU(feat)
-            for step, group in enumerate(_GRU_GROUPS_IMAGE):
+            for step, group in enumerate(self.gru_groups):
                 for head in group:
                     if head in self.head_names:
                         out[head] = getattr(self, head)(states[step])

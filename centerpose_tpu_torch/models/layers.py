@@ -43,12 +43,46 @@ class BatchNorm2d(nn.BatchNorm2d):
     contiguous copy: PyTorch's CPU kernel for channels_last input sums them
     in float32 in one pass, 2.6e-4 of the output off at a 2 x 128 x 128
     batch (the tracking stems'), where its kernel for contiguous input is
-    1e-7 off. On CUDA, and in eval mode, the input goes through as it is."""
+    1e-7 off. On CUDA, and in eval mode, the input goes through as it is.
+
+    With `process_group` set (`training/trainer.py::make_train_step` sets
+    it on the model of a data-parallel step over more than one rank, as
+    `torch.nn.SyncBatchNorm.convert_sync_batchnorm` does), train mode takes
+    the global batch's statistics, as under the JAX package's mesh step:
+    the per-channel sums, then the sums of squared deviations from the
+    global mean, are all-reduced over the group with autograd
+    (`torch.nn.SyncBatchNorm` takes CUDA input only). Every rank of the
+    group must then run each train-mode forward; eval mode reduces
+    nothing."""
+
+    process_group = None
 
     def forward(self, x):
+        if self.training and self.process_group is not None:
+            return self._global_forward(x)
         if self.training and x.device.type == "cpu" and not x.is_contiguous():
             return super().forward(x.contiguous()).contiguous(memory_format=torch.channels_last)
         return super().forward(x)
+
+    def _global_forward(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_full((1,), x.numel() // c)
+        total = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), count]), group=self.process_group)
+        n = total[c]
+        mean = total[:c] / n
+        centred = xf - mean.view(1, c, 1, 1)
+        var = all_reduce((centred * centred).sum(dim=(0, 2, 3)), group=self.process_group) / n
+        y = centred * torch.rsqrt(var + self.eps).view(1, c, 1, 1)
+        y = y * self.weight.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
+        with torch.no_grad():
+            self.num_batches_tracked += 1
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * (n / (n - 1.0)), alpha=m)
+        return y.to(x.dtype)
 
 
 def bn2d(channels: int) -> nn.BatchNorm2d:

@@ -28,13 +28,15 @@ of `ops/dcn_bwd.py` (`csrc/dcn_v2_bwd.cu`). Under `torch.no_grad()` the kernel
 is launched directly and nothing is saved.
 
 `dcn_v2_forward.launches` counts kernel launches, so that a run can show it
-went through the kernel, and `dcn_v2_forward.launches_bf16` those of the
-bf16 body. Both are incremented where the kernel is launched and nowhere
+went through the kernel, `dcn_v2_forward.launches_bf16` those of the bf16
+body and `dcn_v2_forward.launches_by_shape` all of them by (H, C, Co) (a
+`Counter`). All are incremented where the kernel is launched and nowhere
 else.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -259,6 +261,7 @@ def _launch_forward(x, offset, mask, weight, bias, lib=None) -> torch.Tensor:
         )
     if mine:
         dcn_v2_forward.launches += 1
+        dcn_v2_forward.launches_by_shape[(h, c, co)] += 1
         if x.dtype == torch.bfloat16:
             dcn_v2_forward.launches_bf16 += 1
     return out
@@ -348,3 +351,4 @@ def dcn_v2_forward(
 
 dcn_v2_forward.launches = 0
 dcn_v2_forward.launches_bf16 = 0
+dcn_v2_forward.launches_by_shape = collections.Counter()

@@ -19,9 +19,20 @@ CenterPose checkpoint by name and shape, the stems and tracking heads kept
 at init (the main_CenterPoseTrack flow).
 
 Flags keep the JAX CLI's names and defaults. Added: `--device` (default
-cuda; asked for cuda on a host without one, it raises). Refused, named by
-the ROADMAP.md queue A item it waits for: `--num_devices > 1` (side ops and
-scale-out). `--debug > 0`: on the first batch of every epoch, before its
+cuda; asked for cuda on a host without one, it raises).
+
+`--num_devices N` trains data-parallel, the JAX CLI's `data` mesh:
+`parallel/mesh.py::launch` spawns N ranks, one process each (0 = every
+GPU there is; with `--device cpu` one process). On CUDA rank r runs on
+`cuda:r` over NCCL and N above the GPU count raises; on the CPU the ranks
+join over gloo with one intra-op thread each. `--batch_size` is the global
+batch and must be a multiple of N: every rank loads its rows of each global
+index batch (`data/loader.py`), the step is the one-process step on the
+global batch (`training/trainer.py`), and rank 0 alone writes the
+experiment directory. `main` returns rank 0's summary, with every rank's
+index slices under `ranks`.
+
+`--debug > 0`: on the first batch of every epoch, before its
 step, one eval-mode forward on the device; the reference's pred/GT canvases
 of its first sample (`training/debug.py`) go to
 `exp/<arch>/<exp_id>/debug/e<epoch>_<canvas>.png` and to the TensorBoard
@@ -39,8 +50,8 @@ directory, as the JAX CLI's): `opt.txt`, `log.txt`, `scalars.jsonl`, `tb/`,
 and checkpoints (`utils/checkpoint.py`) under `ckpt/<step>/` (every epoch),
 `best/<step>/` (lowest validation loss) and `epoch_<N>/<step>/` (every
 `--save_intervals` epochs), and at the end `summary.json`: the summary
-`main(argv)` also returns (the final step, the per-epoch mean losses, ms per
-step and the share of it spent waiting for the loader; the debug canvases'
+`main(argv)` also returns (the final step, the per-epoch mean losses, each
+step's loss, ms per step and the share of it spent waiting for the loader; the debug canvases'
 time is left out of the steps' and reported apart).
 """
 
@@ -51,6 +62,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -59,6 +71,7 @@ from centerpose_tpu_torch.config import preset
 from centerpose_tpu_torch.data.dataset import ObjectPoseDataset
 from centerpose_tpu_torch.data.loader import DataLoader
 from centerpose_tpu_torch.models.factory import create_model
+from centerpose_tpu_torch.parallel.mesh import World, launch, replicate
 from centerpose_tpu_torch.training.debug import render_train_debug, save_train_debug
 from centerpose_tpu_torch.training.trainer import (
     create_train_state,
@@ -93,7 +106,7 @@ def parse_args(argv=None):
                         "(utils/checkpoint.py::load_partial); the optimizer and step start fresh")
     p.add_argument("--seed", type=int, default=317)
     p.add_argument("--num_devices", type=int, default=0,
-                   help="0 = all; one GPU only (more: ROADMAP.md queue A, side ops and scale-out)")
+                   help="data-parallel ranks, one a device; 0 = every GPU (one process on the CPU)")
     p.add_argument("--input_res", type=int, default=512)
     p.add_argument("--num_workers", type=int, default=2,
                    help="parallel loader workers; 0 = synchronous")
@@ -120,11 +133,7 @@ def parse_args(argv=None):
     p.add_argument("--new_data_augmentation", action="store_true",
                    help="motion blur / downscale / gaussian noise before the affine warp")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    args = p.parse_args(argv)
-    if args.num_devices > 1:
-        p.error("--num_devices > 1: multi-GPU training is not ported to centerpose_tpu_torch "
-                "(ROADMAP.md queue A, side ops and scale-out)")
-    return args
+    return p.parse_args(argv)
 
 
 def _fetch(stats) -> dict:
@@ -136,11 +145,28 @@ def _fetch(stats) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    np.random.seed(args.seed)
-
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device here (pass --device cpu to train on the CPU)")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: no CUDA device here (pass --device cpu to train on the CPU)")
+        have = torch.cuda.device_count()
+        n = args.num_devices or have
+        if n > have:
+            raise ValueError(f"--num_devices {n}: {have} GPU(s) here")
+    else:
+        n = args.num_devices or 1
+    if n < 1 or args.batch_size % n:
+        raise ValueError(f"--batch_size {args.batch_size} is not a multiple of --num_devices {n}")
+    if n == 1:
+        return _run(None, args)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    summaries = launch(_run, n, (args,), backend=backend, threads=1 if device.type == "cpu" else 0)
+    summary = summaries[0]
+    summary["ranks"] = [{"rank": r, "indices": s["indices"]} for r, s in enumerate(summaries)]
+    return summary
+
+
+def _config(args):
     cfg = preset(
         "centerpose_track" if args.tracking_task else "centerpose",
         category=args.category,
@@ -159,16 +185,45 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(num_epochs=args.num_epochs)
     if args.lr_step:
         cfg = cfg.replace(lr_step=tuple(int(e) for e in args.lr_step.split(",") if e))
+    return cfg
 
+
+def _run(world: Optional[World], args) -> dict:
+    """One rank's training run, or with `world=None` the whole run in this
+    process."""
+    np.random.seed(args.seed)
+    device = torch.device(args.device)
+    if device.type == "cuda" and world is not None:
+        device = torch.device("cuda", world.rank)
+    cfg = _config(args)
     exp_dir = os.path.join("exp", cfg.arch, args.exp_id)
-    logger = Logger(exp_dir, cfg)
+    logger = Logger(exp_dir, cfg) if world is None or world.rank == 0 else _NoLogger()
     try:
-        return _train(args, cfg, device, exp_dir, logger)
+        return _train(args, cfg, device, exp_dir, logger, world)
     finally:
         logger.close()
 
 
-def _train(args, cfg, device, exp_dir, logger) -> dict:
+class _NoLogger:
+    """The logger of ranks other than 0: they write nothing."""
+
+    def write(self, msg):
+        pass
+
+    def scalars(self, step, values, prefix=""):
+        pass
+
+    def image(self, step, tag, rgb):
+        pass
+
+    def close(self):
+        pass
+
+
+_END = object()
+
+
+def _train(args, cfg, device, exp_dir, logger, world: Optional[World]) -> dict:
     compact = args.wire == "compact"
     train_ds = ObjectPoseDataset(args.data_dir, cfg, split="train",
                                  new_data_aug=args.new_data_augmentation, compact_wire=compact)
@@ -189,40 +244,49 @@ def _train(args, cfg, device, exp_dir, logger) -> dict:
         state, step = load_checkpoint(ckpt_dir, state)
         start_epoch = step // steps_per_epoch
         logger.write(f"resumed from step {step} (epoch {start_epoch})")
+    rank, size = (0, 1) if world is None else (world.rank, world.size)
+    if world is not None:
+        replicate(world, model)
+    save = rank == 0
 
-    step_fn = make_train_step(cfg, model, tx)
-    eval_fn = make_eval_step(cfg, model)
+    step_fn = make_train_step(cfg, model, tx, world)
+    eval_fn = make_eval_step(cfg, model, world)
     # Parallel prefetching loader (DataLoader(num_workers) parity,
     # main_CenterPose.py:70-78): host augmentation overlaps the device step.
-    train_loader = DataLoader(train_ds, cfg.batch_size, shuffle=True, num_workers=args.num_workers,
-                              seed=args.seed, mode=args.loader_mode, drop_last=True)
-    val_loader = DataLoader(val_ds, cfg.batch_size, shuffle=False, num_workers=args.num_workers,
-                            seed=args.seed, mode=args.loader_mode, drop_last=False)
+    loader_args = dict(num_workers=args.num_workers, seed=args.seed, mode=args.loader_mode,
+                       rank=rank, world=size)
+    train_loader = DataLoader(train_ds, cfg.batch_size, shuffle=True, drop_last=True, **loader_args)
+    val_loader = DataLoader(val_ds, cfg.batch_size, shuffle=False, drop_last=False, **loader_args)
     metadata = {"config": dataclasses.asdict(cfg)}
 
     best = float("inf")
-    epochs, step_ms, wait_ms, debug_ms = [], [], [], []
+    epochs, step_ms, wait_ms, debug_ms, step_loss, indices = [], [], [], [], [], []
     for epoch in range(start_epoch + 1, cfg.num_epochs + 1):
         t0 = time.time()
         agg = {}
         n_steps = 0
         train_loader.set_epoch(epoch)
+        indices.append([b.tolist() for b in train_loader.index_batches()])
         batches = iter(train_loader)
         while True:
             t_wait = time.perf_counter()
-            batch = next(batches, None)
+            batch = next(batches, _END)
             t_step = time.perf_counter()
-            if batch is None:
+            if batch is _END:
                 break
             t_run = t_step
-            if args.debug > 0 and n_steps == 0:
+            if args.debug > 0 and n_steps == 0 and save and batch is not None:
                 _debug_canvases(cfg, model, batch, epoch, exp_dir, logger)
                 t_run = time.perf_counter()
                 debug_ms.append((t_run - t_step) * 1e3)
             state, stats = step_fn(state, batch)
+            if stats is None:                   # a rank's slice lost every sample
+                logger.write(f"epoch {epoch}: a global batch skipped (a rank has no sample)")
+                continue
             stats = _fetch(stats)               # one fetch, which waits for the step
             wait_ms.append((t_step - t_wait) * 1e3)
             step_ms.append((t_step - t_wait + time.perf_counter() - t_run) * 1e3)
+            step_loss.append(stats["loss"])
             n_steps += 1
             for k, v in stats.items():
                 agg[k] = agg.get(k, 0.0) + v
@@ -245,20 +309,26 @@ def _train(args, cfg, device, exp_dir, logger) -> dict:
             record["val"] = vagg
             if vagg.get("loss", float("inf")) < best:
                 best = vagg["loss"]
-                save_checkpoint(os.path.join(exp_dir, "best"), state, state.step, metadata)
+                if save:
+                    save_checkpoint(os.path.join(exp_dir, "best"), state, state.step, metadata)
 
-        save_checkpoint(ckpt_dir, state, state.step, metadata)
-        if args.save_intervals > 0 and epoch % args.save_intervals == 0:
-            save_checkpoint(os.path.join(exp_dir, f"epoch_{epoch}"), state, state.step, metadata)
+        if save:
+            save_checkpoint(ckpt_dir, state, state.step, metadata)
+            if args.save_intervals > 0 and epoch % args.save_intervals == 0:
+                save_checkpoint(os.path.join(exp_dir, f"epoch_{epoch}"), state, state.step, metadata)
         epochs.append(record)
 
     logger.write("training done")
     total = sum(step_ms)
-    summary = {"exp_dir": exp_dir, "step": state.step, "epochs": epochs, "ms_per_step": step_ms,
+    summary = {"exp_dir": exp_dir, "step": state.step, "epochs": epochs, "loss_per_step": step_loss,
+               "ms_per_step": step_ms,
                "loader_wait_ms": wait_ms, "loader_wait_share": sum(wait_ms) / total if total else 0.0,
                "debug_ms": debug_ms}
-    with open(os.path.join(exp_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    if save:
+        with open(os.path.join(exp_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+    if world is not None:
+        summary["indices"] = indices
     return summary
 
 

@@ -44,6 +44,11 @@ class CenterPoseLossConfig:
     dimension_ref: Optional[Tuple[float, float, float]] = None
 
 
+# The keys of the stats `centerpose_loss` returns, in its order.
+STAT_KEYS = ("hm_loss", "hp_loss", "wh_loss", "obj_scale_loss", "off_loss", "hp_offset_loss",
+             "hm_hp_loss", "tracking_loss", "tracking_hp_loss", "loss")
+
+
 def focal_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """CornerNet-style focal loss, per (batch, symmetry).
 

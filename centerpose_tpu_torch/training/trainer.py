@@ -10,8 +10,16 @@ main_CenterPose.py:25-191 (LR ÷10 at lr_step epochs).
     train_step = make_train_step(cfg, model, tx)
     state, stats = train_step(state, batch)      # batch: dict of numpy arrays / tensors
 
-Differences from the JAX package, by design: there is no jit and no mesh (one
-device; data parallel is a later slice); the model owns its parameters and
+Data parallel (`make_train_step(..., world=...)`, `train.py --num_devices`):
+the JAX step with a mesh, one process per device (`parallel/mesh.py`). Each
+rank runs the step on its rows of the global batch; BatchNorm takes the
+global batch's statistics (`models/layers.py::BatchNorm2d`); each rank's
+loss is weighted by its share of the global rows and the gradients summed
+over the world with one all-reduce before the clip, so every rank applies
+the one-process step's update on the global batch (the losses are means
+over samples). The stats are all-reduced to the global batch's means.
+
+Differences from the JAX package, by design: there is no jit; the model owns its parameters and
 BatchNorm statistics and the optimizer its moments, so a step updates them in
 place and hands back the same `TrainState`; the device is the model's. On a
 CUDA model every `DeformConvBlock` runs the forward kernel and, in the
@@ -41,14 +49,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from centerpose_tpu_torch.config import DATA_MEAN, DATA_STD, CenterPoseConfig
-from centerpose_tpu_torch.training.losses import CenterPoseLossConfig, centerpose_loss
+from centerpose_tpu_torch.models.layers import BatchNorm2d
+from centerpose_tpu_torch.parallel.mesh import World, all_reduce_grads
+from centerpose_tpu_torch.training.losses import STAT_KEYS, CenterPoseLossConfig, centerpose_loss
 
 
 def decode_wire(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -156,10 +166,12 @@ def create_train_state(cfg: CenterPoseConfig, model: nn.Module,
     device). The optimizer holds the parameters that require grad at this
     point: freeze what a fine-tuning run leaves alone before the call. They
     must be float32, for a bf16 `compute_dtype` too (mixed precision: the
-    step casts at use, Adam updates float32)."""
+    step casts at use, Adam updates float32), or all float64 (the CPU
+    checks of the data-parallel step, where float32 rounding is amplified
+    past their tolerance)."""
     trainable = [p for p in model.parameters() if p.requires_grad]
     kinds = {p.dtype for p in trainable}
-    if kinds != {torch.float32}:
+    if kinds not in ({torch.float32}, {torch.float64}):
         raise ValueError(
             f"create_train_state: parameters of type {sorted(map(str, kinds))}; training "
             "keeps float32 parameters (create_model(cfg, param_dtype='float32'))"
@@ -215,16 +227,55 @@ def _forward(cfg: CenterPoseConfig, model: nn.Module, batch: Dict[str, torch.Ten
     return model(batch["input"])
 
 
-def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam):
+def _rows(batch) -> int:
+    return 0 if batch is None else int(batch["input"].shape[0])
+
+
+def _world_mean(stats, rows: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The global batch's mean of per-rank mean `stats` over `rows` rows
+    each (a rank without rows passes `stats=None`)."""
+    vec = torch.zeros(len(STAT_KEYS) + 1, dtype=torch.float64, device=device)
+    if rows:
+        vec[:-1] = torch.stack([stats[k].detach().double() for k in STAT_KEYS]) * rows
+    vec[-1] = rows
+    torch.distributed.all_reduce(vec)
+    return {k: (vec[i] / vec[-1]).float() for i, k in enumerate(STAT_KEYS)}
+
+
+def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam,
+                    world: Optional[World] = None):
     """`step(state, batch) -> (state, stats)`: forward in train mode (batch
     statistics, running statistics updated), loss, backward, clip, Adam.
     `stats` are detached 0-d tensors on the model's device (per-head losses,
     `loss`); nothing synchronises with the host. The gradients of the step
-    stay in the parameters' `.grad` (after clipping) until the next step."""
-    loss_cfg = loss_config_from(cfg)
+    stay in the parameters' `.grad` (after clipping) until the next step.
 
-    def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    With a `world` (`parallel/mesh.py`; a live process group, of one rank
+    or more) `batch` is this rank's rows of the global batch (`None` for
+    none) and every rank must call the step for every global batch: the
+    gradients and the stats are those of the global batch. A global batch of which some rank has no row
+    (its every sample dropped by the dataset) is skipped by every rank, and
+    the step returns `stats=None`. Over more than one rank the model's
+    BatchNorms take the global batch's statistics from here on
+    (`models/layers.py::BatchNorm2d.process_group`)."""
+    loss_cfg = loss_config_from(cfg)
+    parallel = world is not None
+    if parallel and world.size > 1:
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.process_group = torch.distributed.group.WORLD
+
+    def step_fn(state: TrainState, batch) -> Tuple[TrainState, Optional[Dict[str, torch.Tensor]]]:
         device = _device_of(model)
+        weight = 1.0
+        if parallel:
+            rows = _rows(batch)
+            counts = torch.tensor([rows, rows == 0], dtype=torch.float64, device=device)
+            torch.distributed.all_reduce(counts)
+            total, empty = counts.tolist()
+            if empty:
+                return state, None
+            weight = rows / total
         batch = _to_device(batch, device)
         model.train()
         for p in tx.params:
@@ -232,13 +283,16 @@ def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam):
         with _compute(cfg, device):
             outputs = _forward(cfg, model, batch)
         loss, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "train")
-        loss.backward()
+        (loss * weight if parallel else loss).backward()
         for p in tx.params:
             # A parameter the forward never reads (the reference keeps an
             # unused `project` conv in its two-level trees) has a zero
             # gradient, as in the JAX package; Adam then leaves it alone.
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if parallel:
+            all_reduce_grads(tx.params)
+            stats = _world_mean(stats, rows, device)
         tx.step()
         state.step += 1
         return state, {k: v.detach() for k, v in stats.items()}
@@ -246,19 +300,27 @@ def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam):
     return step_fn
 
 
-def make_eval_step(cfg: CenterPoseConfig, model: nn.Module):
+def make_eval_step(cfg: CenterPoseConfig, model: nn.Module, world: Optional[World] = None):
     """Validation loss step (test.py / trainer.val parity): running BN stats,
     val-phase loss (relative scale error — trains/object_pose.py:125-128).
-    `eval_fn(state, batch) -> stats`."""
+    `eval_fn(state, batch) -> stats`. With a `world` (a live process group)
+    `batch` is this rank's rows of a global batch (`None` for none) and the
+    stats are the global batch's means; every rank calls it for every
+    global batch."""
     loss_cfg = loss_config_from(cfg)
+    parallel = world is not None
 
     def eval_fn(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         device = _device_of(model)
-        batch = _to_device(batch, device)
-        model.eval()
-        with torch.no_grad(), _compute(cfg, device):
-            outputs = _forward(cfg, model, batch)
-            _, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "val")
+        stats = None
+        if batch is not None:
+            batch = _to_device(batch, device)
+            model.eval()
+            with torch.no_grad(), _compute(cfg, device):
+                outputs = _forward(cfg, model, batch)
+                _, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "val")
+        if parallel:
+            return _world_mean(stats, _rows(batch), device)
         return stats
 
     return eval_fn

@@ -11,9 +11,11 @@ model (dla_34 at 512x512, one frame per call) and that model's training
 (its steps, `train.py --tracking_task`, its validation loss), its evaluation CLI (AP of
 both models over generated frames, and the validation loss), the other
 architectures (res_18, resdcn_18, dlav0_34, hourglass at 512x512, served
-and trained) and the closed accuracy loop (the flagship trained from
+and trained), the closed accuracy loop (the flagship trained from
 zero-initialised DCN offsets, its offsets probed, evaluated, and the debug
-canvases of the train and demo CLIs) through the entry points a user calls, builds the CUDA
+canvases of the train and demo CLIs), the dlav1 + tracking model (4-step
+ConvGRU) served and trained, and data-parallel training (a world of 1 over
+NCCL, 2 ranks over gloo on the one card) through the entry points a user calls, builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and shows that every path really went through
 them. Every phase prints one JSON line; a phase
@@ -251,6 +253,47 @@ Phases:
            size. ms per step, images/s, loader-wait share, loss by epoch,
            the APs (printed, not required: ~96 steps from scratch) and the
            probe's overall numbers at init and after.
+  track_dlav1
+           The dlav1 + tracking model (`preset("centerpose_track",
+           arch="dlav1_34")`: the previous-frame stems, a 4-step ConvGRU
+           whose step 0 feeds `tracking` / `tracking_hp`, 11 GroupNorm
+           heads) at 512x512, weights from `track_weights`: TRACK_V1_FRAMES
+           frames of the synthetic video through `Detector.run` in float32
+           and bf16 (16 forward launches a frame, stage medians), then a
+           warm-up and TRAIN_STEPS float32 steps at batch 8 on a batch of
+           the package's tracking dataset (16 forward and 16 fused backward
+           launches a step by shape, finite losses, tracking losses > 0).
+           Counters set to 0 before the frames, read after the steps. Then
+           the warm-up step's first DCN block's fused backward on its own
+           operands against the plain version, and one frame of the network
+           with previous-frame inputs through the kernel against the plain
+           DCN, head by head (2e-3), under `utils/profiler.trace`, whose
+           Chrome trace must name the forward kernel.
+  ddp      Data-parallel training of the flagship at 512x512, float32.
+           (a) `parallel/step.py::train_steps` (TF32 off, one synthetic
+           batch of 8): the step without a process group in this process;
+           DDP_ULP_DRAWS more on the images moved by one float32 ulp (up,
+           down, and random signs: a random network's float32 step is
+           chaotic, and the largest of these moves is its noise floor); in
+           two spawned ranks over gloo on the one card (4 rows each,
+           BatchNorm on the global batch's statistics). The two-rank step's
+           loss, all-reduced gradient and running statistics against the
+           one-process step's, each within DDP_TOL (1e-4; 1 % in L2 norm;
+           1e-4) or twice the largest one-ulp move, the larger; the error by
+           top-level module of each. (b) The training CLI's rank function
+           (`train.py::_run`, through `parallel/step.py::counted_run`) on
+           generated frames, one epoch of 3 steps at batch 8 and 3
+           validation batches, TF32 off: `train.main
+           --num_devices 1` in this process (no process group) and one
+           spawned rank in a world of 1 over NCCL; the first step's loss
+           within 1e-4, a checkpoint from each; ms per step less the loader's wait
+           (the process group's cost). Every run counts its DCN launches by
+           shape in its own process, each run held to its passes times the
+           model phase's per-forward mix. `train.main` with `--num_devices`
+           above the GPU count must raise.
+  psroi    `ops/psroi.py::dcn_v2_psroi_pooling` (torch ops, no kernel of its
+           own) on the card against itself on the CPU: 16 ROIs, forward and
+           input gradient within 1e-5, ms a call on each.
 
 Bounds: float32 operations are counted at the rate of float32-accurate
 products on the tensor cores (3xTF32: a third of 495 TFLOP/s), bf16 at 989
@@ -462,6 +505,7 @@ def phase_env() -> str:
 
 def reset_launches() -> None:
     dcn_v2_forward.launches = dcn_v2_forward.launches_bf16 = 0
+    dcn_v2_forward.launches_by_shape.clear()
     for fn, *_ in BWD_KERNELS.values():
         fn.launches = fn.launches_bf16 = 0
 
@@ -1370,7 +1414,7 @@ def phase_serve(cfg, state_dict):
 
 
 # ------------------------------------------------------------------- track
-def track_weights(model, cfg, frame_w: int, seed: int) -> None:
+def track_weights(model, cfg, frame_w: int, seed: int, hm_shift: float = TRACK_HM_SHIFT) -> None:
     """Random weights that give a random tracking network a coherent video.
     `create_model`'s uniform +-1/sqrt(fan_in) convolutions shrink the
     activations layer by layer until the heatmap is one constant (every cell
@@ -1378,7 +1422,7 @@ def track_weights(model, cfg, frame_w: int, seed: int) -> None:
     again He-normal (variance 2/fan_in) from `seed`, and the DCN offset convs
     as the model phase draws them. Then five heads are set, as
     `tests/test_torch_port_video.py` does on the CPU: the heatmap bias lowered
-    by TRACK_HM_SHIFT so that only the strongest peaks pass the thresholds;
+    by `hm_shift` so that only the strongest peaks pass the thresholds;
     boxes 12 output pixels wide, which is what lets the detections of
     consecutive frames associate; no keypoint-heatmap peak (PnP reads the
     displacement keypoints); displacement keypoints near the projection of a
@@ -1396,7 +1440,7 @@ def track_weights(model, cfg, frame_w: int, seed: int) -> None:
     corners = cuboid_vertices(np.ones(3)) @ yaw.T + [0.0, 0.0, 8.0]
     offsets = corners[:, :2] / corners[:, 2:] * DEFAULT_CAMERA[0, 0] / out_px
     with torch.no_grad():
-        model.hm[-1].bias.sub_(TRACK_HM_SHIFT)
+        model.hm[-1].bias.sub_(hm_shift)
         for head, gain, bias in (("wh", 0.1, 12.0), ("hm_hp", 0.1, -6.0), ("hps", 0.05, None),
                                  ("scale", 0.1, 1.0), ("tracking", 0.1, 0.0), ("tracking_hp", 0.1, 0.0)):
             out = getattr(model, head)[-1]
@@ -2907,6 +2951,432 @@ def phase_accuracy(per_forward):
     return all_fwd, counts
 
 
+# ------------------------------------------------------------- track_dlav1
+TRACK_V1_FRAMES = 10                       # frames of the dlav1 tracking model's video, each type
+# Its GroupNorm heads give `track_weights` heatmap logits of ~1 spread (the
+# dla_34 model's plain heads ~10): a smaller shift lets the top peaks of
+# a 512x512 frame through (at 256x256 on the CPU: logits' median -1.2,
+# 99.9th percentile 0.75, largest 1.27).
+TRACK_V1_HM_SHIFT = 2.2
+
+
+def phase_track_dlav1(per_forward):
+    """The dlav1 + tracking model (`preset("centerpose_track",
+    arch="dlav1_34")`: the previous-frame stems, the 16-block DCN neck, a
+    4-step ConvGRU whose step 0 feeds the tracking heads, 11 GroupNorm
+    heads) at 512x512, weights from `track_weights`. (1) TRACK_V1_FRAMES
+    frames of the synthetic video through `Detector.run` in float32 and in
+    bf16: 16 forward launches a frame, stage medians. (2) One batch of 8 from
+    the package's tracking dataset (2 generated videos of 4 frames of
+    640x480): a warm-up and TRAIN_STEPS timed float32 steps, 16 forward and
+    16 fused backward launches a step by shape, finite losses with the
+    tracking losses > 0. Every counter is set to 0 before (1) and read after
+    (2). Then, held against the plain versions: the fused backward at the
+    warm-up step's first DCN block on its own operands and cotangent, and
+    one frame of the network with previous-frame inputs through the kernel
+    against the plain DCN head by head (2e-3, as the track phase), that
+    frame under `utils/profiler.trace`, whose Chrome trace must name the
+    forward kernel."""
+    import tempfile
+
+    from centerpose_tpu_torch.data.dataset import ObjectPoseDataset, collate_filtered
+    from centerpose_tpu_torch.data.synthetic import generate_dataset
+    from centerpose_tpu_torch.utils.profiler import trace
+
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    fused = dcn_bwd.dcn_v2_bwd_fused
+    cfg = preset("centerpose_track", arch="dlav1_34", category="shoe", input_h=INPUT, input_w=INPUT,
+                 vis_thresh=TRACK_VIS_THRESH, new_thresh=TRACK_NEW_THRESH)
+    det = Detector(cfg, device=DEVICE, seed=0)
+    require(det.model.convGRU.steps == 4 and det.model.gru_groups[0] == ("tracking", "tracking_hp"),
+            "the dlav1 tracking model does not route GRU step 0 to the tracking heads")
+    frames = synthetic_video(TRACK_V1_FRAMES, seed=4)
+    track_weights(det.model, cfg, frames[0].shape[1], seed=0, hm_shift=TRACK_V1_HM_SHIFT)
+    state = {k: v.clone() for k, v in det.model.state_dict().items()}
+    out = {"phase": "track_dlav1", "hm_bias_shift": TRACK_V1_HM_SHIFT, "arch": cfg.arch, "gru_steps": cfg.gru_steps,
+           "input": [1, INPUT, INPUT, 3], "frame": list(frames[0].shape), "frames": len(frames),
+           "weights": "He-normal from seed 0, heads set by track_weights"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_track_v1_") as tmp:
+        data = os.path.join(tmp, "data")
+        generate_dataset(data, n_videos=2, frames_per_video=TRAIN_BATCH // 2, seed=0, width=640, height=480)
+        tcfg = cfg.replace(batch_size=TRAIN_BATCH)
+        ds = ObjectPoseDataset(data, tcfg, split="train", seed=0, compact_wire=True)
+        items = [ds[i] for i in range(TRAIN_BATCH)]
+        for item in items:
+            item.pop("meta")
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in collate_filtered(items).items()}
+        require(batch["tracking_mask"].sum() > 0, "the tracking batch has no tracking target")
+
+        reset_launches()                                 # ---- the main path starts
+        all_fwd = Counter()
+        global_hook = count_all_dcn_shapes(all_fwd)
+        try:
+            per_frame, hm_max, repnp = run_video(det, frames)
+            det16 = Detector(cfg.replace(compute_dtype="bfloat16"), state_dict=state, device=DEVICE)
+            per_frame16, _, _ = run_video(det16, frames)
+            del det16
+            frame_fwd = dcn_v2_forward.launches          # run_video zeroes the counter a frame
+            model = train_model(tcfg)
+            st, tx = create_train_state(tcfg, model, steps_per_epoch=1000)
+            step = make_train_step(tcfg, model, tx)
+            bwd_shapes = Counter()
+            hooks = count_dcn_backward_shapes(model, bwd_shapes)
+            record = {}
+            undo = spy_dcn_call(record)
+            try:
+                first = timed_stats_step(step, st, batch)
+            finally:
+                undo()
+            timed = [timed_stats_step(step, st, batch) for _ in range(TRAIN_STEPS)]
+            for h in hooks:
+                h.remove()
+        finally:
+            global_hook.remove()
+        train_fwd = dcn_v2_forward.launches - frame_fwd
+        counts = {"dcn_v2_fwd": sum(f["launches"] for f in per_frame + per_frame16) + train_fwd,
+                  "dcn_v2_fwd_bf16": dcn_v2_forward.launches_bf16,
+                  "dcn_v2_bwd_fused": fused.launches,
+                  "dcn_v2_bwd_fused_bf16": fused.launches_bf16}   # ---- the main path ends
+        steps = 1 + TRAIN_STEPS
+        launches = [f["launches"] for f in per_frame]
+        launches16 = [f["launches"] for f in per_frame16]
+        require(all(n == 16 for n in launches + launches16),
+                f"dlav1 tracking: DCN forward launches per frame {launches} / bf16 {launches16}, expected 16")
+        require(counts["dcn_v2_fwd_bf16"] == 16 * len(frames), f"dlav1 tracking: bf16 launches {counts}")
+        require(train_fwd == 16 * steps and counts["dcn_v2_bwd_fused"] == 16 * steps
+                and counts["dcn_v2_bwd_fused_bf16"] == 0,
+                f"dlav1 tracking train steps: {train_fwd} forward, {counts['dcn_v2_bwd_fused']} fused "
+                f"backward launches in {steps} steps")
+        for shape, n in per_forward.items():
+            require(all_fwd[shape] == n * (2 * len(frames) + steps) and bwd_shapes[shape] == n * steps,
+                    f"dlav1 tracking, shape {shape}: {all_fwd[shape]} forward / {bwd_shapes[shape]} backward "
+                    f"passes, {n} a forward in the model phase")
+        require(sum(all_fwd.values()) == counts["dcn_v2_fwd"], "dlav1 tracking: passes by shape != launches")
+        stats = [first[1]] + [s for _, s in timed]
+        require(all(np.isfinite(v) for s in stats for v in s.values()), f"dlav1 tracking step: {stats}")
+        require(all(s["tracking_loss"] > 0 and s["tracking_hp_loss"] > 0 for s in stats),
+                f"dlav1 tracking step: a tracking loss is 0: {stats}")
+        step_ms = sorted(ms for ms, _ in timed)[len(timed) // 2]
+        out["train_float32"] = {
+            "batch": TRAIN_BATCH, "steps": steps, "losses": [s["loss"] for s in stats],
+            "first_step_ms": first[0], "ms_per_step_each": [ms for ms, _ in timed], "ms_per_step": step_ms,
+            "images_per_s": TRAIN_BATCH / (step_ms * 1e-3), "stats_last": stats[-1],
+            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32},
+        }
+        del model, st, tx, step, batch
+        torch.cuda.empty_cache()
+
+        # Held against the plain versions after the counts are read.
+        out["step_backward_vs_plain"] = check_step_backward(record, "float32")
+        del record
+        rng = np.random.RandomState(6)
+        inputs = [torch.from_numpy(rng.rand(1, INPUT, INPUT, n).astype(np.float32)).to(DEVICE)
+                  for n in (3, 3, 1, 8)]
+        real = layers.dcn_v2_forward
+        with torch.no_grad():
+            with trace(os.path.join(tmp, "trace")) as prof:
+                out_k = det.model(*inputs)
+                torch.cuda.synchronize()
+            layers.dcn_v2_forward = dcn_v2
+            try:
+                out_p = det.model(*inputs)
+            finally:
+                layers.dcn_v2_forward = real
+        torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace", "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = Counter(e["name"] for e in events if e.get("cat") == "kernel" and "dcn_v2_fwd" in e["name"])
+    require(set(out_k) == set(cfg.heads) and len(out_k) == 11, f"heads {sorted(out_k)}")
+    require(all(torch.isfinite(v).all() for v in out_k.values()), "a dlav1 tracking head is not finite")
+    diffs = {h: (out_k[h] - out_p[h]).abs().max().item() for h in out_k}
+    require(max(diffs.values()) <= 2e-3, f"f32 dlav1 tracking network, kernel vs plain DCN: {diffs}")
+    require(sum(kernels.values()) > 0, f"the frame's trace does not name the DCN forward kernel: {dict(kernels)}")
+    med, med16 = stage_medians(per_frame), stage_medians(per_frame16)
+    out.update({
+        "stage_ms_median_float32": med, "frames_per_s_float32": 1e3 / med["wall"],
+        "stage_ms_median_bfloat16": med16, "frames_per_s_bfloat16": 1e3 / med16["wall"],
+        "median_over_frames_from": TRACK_WARMUP,
+        "launches_per_frame": launches, "launches_per_frame_bfloat16": launches16,
+        "live_tracks_per_frame": [f["tracks"] for f in per_frame],
+        "boxes_per_frame": [f["boxes"] for f in per_frame],
+        "pre_hm_max_by_frame": hm_max, "re_pnp": repnp,
+        "f32_kernel_vs_plain_max_abs_diff": diffs,
+        "trace_names": {"kernels": dict(kernels), "profiler_ops": sorted(
+            {e.key for e in prof.key_averages() if "dcn" in e.key.lower()})},
+        "launches": counts, "launches_by_shape": {"x".join(map(str, k)): v for k, v in all_fwd.items()},
+        "seconds": time.time() - t_phase,
+    })
+    del det, out_k, out_p
+    torch.cuda.empty_cache()
+    emit(out)
+    return all_fwd, counts
+
+
+# --------------------------------------------------------------------- ddp
+DDP_STEPS = 3                              # a warm-up and 2 timed steps in every run
+# The two-rank step against the one-process step, float32 (TF32 off): the
+# loss relative; the gradient relative in L2 norm over every parameter; the
+# running statistics relative, floored at 1. A random network's float32 step
+# is chaotic through its ~100 BatchNorms on batch statistics: on the CPU at
+# 128x128 its gradient is 15 % from the float64 step's in L2 norm, and moving
+# every input value by one float32 ulp moves it by 14 %. So each quantity is
+# held to DDP_TOL or to DDP_ULP_FACTOR times the largest change that
+# DDP_ULP_DRAWS one-ulp moves of the inputs make in the one-process step,
+# the larger. Each leaf's largest error over its largest |g| is reported (a
+# bias in front of a train-mode BatchNorm has a zero gradient in exact
+# arithmetic: rounding noise).
+DDP_TOL = {"loss": 1e-4, "grad_l2": 1e-2, "running": 1e-4}
+DDP_ULP_FACTOR = 2.0
+DDP_ULP_DRAWS = 5                          # up, down, and 3 draws of random signs
+# The training CLI's rank function in a world of 1 over NCCL against the CLI
+# without a process group on the same frames, TF32 off in both: the first
+# step's loss (the same weights and rows) within DDP_TOL["loss"]. The later
+# steps' are reported, not compared: after an Adam update (~lr * sign(g))
+# the two runs' float32 steps part as the one-ulp draws do (their epoch
+# means were 3.4e-4 and 4.4e-4 apart on the card).
+DDP_CLI_FRAMES = 24                        # 3 steps and 3 validation batches of 8
+
+
+def grad_errors(got, ref):
+    """Per leaf: max |got - ref| over the leaf's largest |ref| (leaves with
+    a zero gradient left out); and the relative L2 error over all leaves."""
+    per_leaf = {n: float((got[n] - r).abs().max()) / float(r.abs().max())
+                for n, r in ref.items() if float(r.abs().max()) > 0}
+    l2_rel = l2([got[n] - r for n, r in ref.items()]) / l2(list(ref.values()))
+    return per_leaf, l2_rel
+
+
+def ulp_moved(x, draw):
+    """`x` with every value moved by one float32 ulp: up (draw 0), down
+    (draw 1), or each up or down at random (seed `draw`)."""
+    up, down = np.nextafter(x, np.float32(np.inf)), np.nextafter(x, np.float32(-np.inf))
+    if draw < 2:
+        return (up, down)[draw]
+    return np.where(np.random.RandomState(draw).rand(*x.shape) < 0.5, up, down)
+
+
+def require_launch_mix(name, res, passes, backward_passes, per_forward):
+    """A run's DCN launches, counted in its process: 16 forward launches a
+    forward pass, at the model phase's per-forward mix of shapes, and 16
+    fused backward launches a backward pass."""
+    want = {k: passes * v for k, v in per_forward.items()}
+    require(res["launches"] == {"dcn_v2_fwd": 16 * passes, "dcn_v2_bwd_fused": 16 * backward_passes}
+            and dict(res["launches_by_shape"]) == want,
+            f"ddp {name}: DCN launches {res['launches']}, by shape {dict(res['launches_by_shape'])}, "
+            f"in {passes} forward and {backward_passes} backward passes")
+
+
+def phase_ddp(per_forward):
+    """Data-parallel training (`parallel/mesh.py`, the counterpart of the JAX
+    package's `data` mesh) on the one card, the flagship (dlav1_34 at
+    512x512, float32). (a) `parallel/step.py::train_steps`, TF32 off,
+    random weights from seed 0 with the offset convs drawn, one synthetic
+    batch of 8: without a process group in this process; DDP_ULP_DRAWS
+    times one step on the same images moved by one float32 ulp (how far
+    float32 rounding alone moves this step); two spawned ranks over gloo on
+    the one card (NCCL takes one rank a device), 2 x 4 rows, BatchNorm on
+    the global batch's statistics: the loss, the all-reduced gradients
+    (after the step's clip) and the running statistics after one step held
+    against the one-process step at DDP_TOL or at DDP_ULP_FACTOR times the
+    largest one-ulp difference, the larger. (b) The training CLI on
+    DDP_CLI_FRAMES generated frames, one epoch with validation, TF32 off: `train.main
+    --num_devices 1` in this process and its rank function `_run` in one
+    spawned rank of a world of 1 over NCCL (the row count, the gradients,
+    the stats all-reduced; the rank-sliced loader; rank 0's writes); the
+    first step's loss within DDP_TOL["loss"] of each other, ms per step
+    less the loader's wait. Each run's DCN launches are counted by shape in
+    its own process. Then `train.main` with `--num_devices` above the GPU
+    count must raise. Returns the launches of every run (the forward's by
+    shape, the fused backward's) summed."""
+    import tempfile
+
+    from centerpose_tpu_torch import train as train_cli
+    from centerpose_tpu_torch.data.synthetic import generate_dataset
+    from centerpose_tpu_torch.parallel import launch
+    from centerpose_tpu_torch.parallel.step import counted_run, launch_counts, train_steps
+    from centerpose_tpu_torch.utils.checkpoint import latest_step
+
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")      # one host: the ranks' rendezvous
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cfg = preset("centerpose", input_h=INPUT, input_w=INPUT, batch_size=TRAIN_BATCH)
+    model = train_model(cfg)
+    state_dict = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    batch = {k: v.cpu().numpy() for k, v in synthetic_batch(cfg, TRAIN_BATCH, seed=7).items()}
+    torch.cuda.empty_cache()
+    args = (cfg, state_dict, batch, "cuda", DDP_STEPS)
+    reset_launches()
+    t0 = time.time()
+    single = train_steps(None, *args)
+    single_s = time.time() - t0
+    draws = [train_steps(None, cfg, state_dict, dict(batch, input=ulp_moved(batch["input"], d)), "cuda", 1)
+             for d in range(DDP_ULP_DRAWS)]
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    gloo = launch(train_steps, 2, args, backend="gloo")
+    gloo_s = time.time() - t0
+    runs = {"single": [single], **{f"one_ulp_{d}": [r] for d, r in enumerate(draws)},
+            "gloo_2_ranks": gloo}
+    for name, ranks in runs.items():
+        steps = 1 if name.startswith("one_ulp") else DDP_STEPS
+        for r, res in enumerate(ranks):
+            require_launch_mix(f"{name} rank {r}", res, steps, steps, per_forward)
+    ref = single
+
+    def against(res):
+        """The run's first step against the one-process step's."""
+        errs, grad_l2 = grad_errors(res["grads"], ref["grads"])
+        worst = max(errs, key=errs.get)
+        running = {n: float(((res["running"][n] - r).abs() / r.abs().clamp_min(1.0)).max())
+                   for n, r in ref["running"].items()}
+        worst_running = max(running, key=running.get)
+        by_module = Counter()
+        for n, r in ref["grads"].items():
+            by_module[n.split(".")[0]] += float(((res["grads"][n] - r).double() ** 2).sum())
+        return {
+            "loss": res["loss"], "loss_rel_err": abs(res["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_l2_rel_err": grad_l2, "norm": res["norm"],
+            "grad_l2_rel_err_by_module": {k: v ** 0.5 / l2(list(ref["grads"].values()))
+                                          for k, v in by_module.most_common()},
+            "grad_leaf_rel_err_max": errs[worst], "grad_worst_leaf": worst,
+            "grad_leaf_rel_err_median": float(np.median(list(errs.values()))),
+            "running_rel_err_max": running[worst_running], "running_worst": worst_running,
+        }
+
+    two, nudges = against(gloo[0]), [against(r) for r in draws]
+    tol = {k: max(DDP_TOL[k], DDP_ULP_FACTOR * max(n[key] for n in nudges)) for k, key in (
+        ("loss", "loss_rel_err"), ("grad_l2", "grad_l2_rel_err"), ("running", "running_rel_err_max"))}
+
+    # (b) the training CLI's rank function, in this process and in a world of 1
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        data = os.path.join(tmp, "data")
+        frames = generate_dataset(data, n_videos=2, frames_per_video=DDP_CLI_FRAMES // 2, seed=0,
+                                  width=640, height=480)
+        argv = ["--data_dir", data, "--input_res", str(INPUT), "--batch_size", str(TRAIN_BATCH),
+                "--num_workers", "2", "--num_epochs", "1", "--val_intervals", "1", "--num_devices", "1"]
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            before = launch_counts()
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            cli = {"in_process": train_cli.main(argv + ["--exp_id", "in_process"])}
+            cli["in_process"].update(launch_counts(before))
+            cli_one_s = time.time() - t0
+            t0 = time.time()
+            cli["nccl_world_1"] = launch(
+                counted_run, 1, (train_cli.parse_args(argv + ["--exp_id", "nccl_world_1"]), (False, False)),
+                backend="nccl")[0]
+            cli_nccl_s = time.time() - t0
+            ckpts = {k: latest_step(os.path.join(tmp, res["exp_dir"], "ckpt")) for k, res in cli.items()}
+        finally:
+            os.chdir(cwd)
+    n_steps, n_val = len(frames) // TRAIN_BATCH, -(-len(frames) // TRAIN_BATCH)
+    for name, res in cli.items():
+        require(res["step"] == n_steps and ckpts[name] == n_steps,
+                f"ddp CLI {name}: step {res['step']}, checkpoint {ckpts[name]}, want {n_steps}")
+        require_launch_mix(f"CLI {name}", res, n_steps + n_val, n_steps, per_forward)
+    cli_losses = {k: {"per_step": res["loss_per_step"], "val": res["epochs"][0]["val"]["loss"]}
+                  for k, res in cli.items()}
+    first = [cli_losses[k]["per_step"][0] for k in ("nccl_world_1", "in_process")]
+    cli_loss_rel = abs(first[0] - first[1]) / abs(first[1])
+    own_ms = {k: [s - w for s, w in zip(res["ms_per_step"], res["loader_wait_ms"])] for k, res in cli.items()}
+
+    try:
+        train_cli.main(["--data_dir", "unused", "--num_devices", str(torch.cuda.device_count() + 1)])
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+
+    def median(ms):
+        return float(np.median(ms))
+
+    every = {**runs, **{f"cli_{k}": [res] for k, res in cli.items()}}
+    emit({
+        "phase": "ddp", "arch": cfg.arch, "input": [TRAIN_BATCH, INPUT, INPUT, 3], "dtype": "float32",
+        "tf32": False,
+        "steps": DDP_STEPS,
+        "ms_per_step": {name: [median(res["ms"]) for res in ranks] for name, ranks in runs.items()
+                        if not name.startswith("one_ulp")},
+        "ms_per_step_each": {name: [res["ms"] for res in ranks] for name, ranks in runs.items()
+                             if not name.startswith("one_ulp")},
+        "wall_s": {"single": single_s, "gloo_2_ranks": gloo_s, "cli_in_process": cli_one_s,
+                   "cli_nccl_world_1": cli_nccl_s},
+        "one_process": {"loss": ref["loss"], "norm": ref["norm"]},
+        "two_ranks_vs_one_process": two, "one_ulp_vs_one_process": nudges,
+        "tolerance": {"fixed": DDP_TOL, "ulp_factor": DDP_ULP_FACTOR, "ulp_draws": DDP_ULP_DRAWS,
+                      "applied": tol},
+        "cli": {"frames": len(frames), "steps": n_steps, "validation_batches": n_val,
+                "losses": cli_losses, "first_step_loss_rel_err": cli_loss_rel, "checkpoints": ckpts,
+                "step_ms_less_loader_wait_each": own_ms,
+                "step_ms_less_loader_wait_median_after_first": {k: median(v[1:]) for k, v in own_ms.items()},
+                "process_group_overhead_ms": median(own_ms["nccl_world_1"][1:]) - median(own_ms["in_process"][1:]),
+                "loader_wait_ms_each": {k: res["loader_wait_ms"] for k, res in cli.items()}},
+        "launches": {name: [res["launches"] for res in ranks] for name, ranks in every.items()},
+        "num_devices_refusal": refusal, "seconds": time.time() - t_phase,
+    })
+    require(np.isfinite(ref["loss"]) and all(torch.isfinite(g).all() for g in gloo[0]["grads"].values()),
+            "ddp: a loss or gradient is not finite")
+    require(two["loss_rel_err"] <= tol["loss"], f"ddp: two-rank loss {two['loss']} vs {ref['loss']}")
+    require(two["grad_l2_rel_err"] <= tol["grad_l2"],
+            f"ddp: the two-rank gradient is {two['grad_l2_rel_err']} off in L2 norm (limit {tol['grad_l2']})")
+    require(two["running_rel_err_max"] <= tol["running"],
+            f"ddp: two-rank running statistic {two['running_worst']} off by {two['running_rel_err_max']}")
+    require(all(np.isfinite(v) for losses in cli_losses.values() for v in losses["per_step"] + [losses["val"]])
+            and cli_loss_rel <= DDP_TOL["loss"],
+            f"ddp: the CLI's first step's loss {first[0]} in a world of 1 against {first[1]} "
+            "without a process group")
+    require(refusal is not None, "train.py --num_devices above the GPU count did not raise")
+    fwd_by_shape = sum((res["launches_by_shape"] for ranks in every.values() for res in ranks), Counter())
+    fused = sum(res["launches"]["dcn_v2_bwd_fused"] for ranks in every.values() for res in ranks)
+    require(sum(fwd_by_shape.values()) == sum(res["launches"]["dcn_v2_fwd"]
+                                              for ranks in every.values() for res in ranks),
+            "ddp: the runs' forward launches by shape do not add up to their counters")
+    return fwd_by_shape, fused
+
+
+# ------------------------------------------------------------------- psroi
+def phase_psroi():
+    """`ops/psroi.py::dcn_v2_psroi_pooling` (plain torch ops, no kernel of
+    its own) on the card against the same op on the CPU: 16 ROIs on a
+    [2, 490, 32, 32] map (output_dim 10, group 7, 7x7 bins, 4x4 samples,
+    with offsets), forward and the input's gradient within 1e-5; ms a call
+    on each."""
+    from centerpose_tpu_torch.ops.psroi import dcn_v2_psroi_pooling
+
+    rng = np.random.RandomState(0)
+    n, b, size = 16, 2, 32
+    x = rng.randn(b, 10 * 7 * 7, size, size).astype(np.float32)
+    rois = np.stack([rng.randint(0, b, n), rng.uniform(0, 80, n), rng.uniform(0, 80, n),
+                     rng.uniform(40, 128, n), rng.uniform(40, 128, n)], 1).astype(np.float32)
+    trans = rng.randn(n, 2, 7, 7).astype(np.float32)
+    cot = rng.randn(n, 10, 7, 7).astype(np.float32)
+    kw = dict(spatial_scale=0.25, pooled_size=7, output_dim=10, group_size=7, part_size=7,
+              sample_per_part=4, trans_std=0.1)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        args = (torch.tensor(rois, device=dev), torch.tensor(trans, device=dev))
+        out = dcn_v2_psroi_pooling(xt, *args, **kw)
+        out.backward(torch.tensor(cot, device=dev))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(5):
+                dcn_v2_psroi_pooling(xt, *args, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (out.detach().cpu(), xt.grad.cpu(), (time.perf_counter() - t0) / 5 * 1e3)
+    fwd_err = (res["cuda"][0] - res["cpu"][0]).abs().max().item()
+    grad_err = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
+    require(fwd_err <= 1e-5 and grad_err <= 1e-5, f"psroi card vs CPU: forward {fwd_err}, gradient {grad_err}")
+    emit({"phase": "psroi", "rois": n, "input": [b, 490, size, size], "output": list(res["cuda"][0].shape),
+          "max_abs_err": fwd_err, "grad_max_abs_err": grad_err, "output_max": res["cpu"][0].abs().max().item(),
+          "ms_card": res["cuda"][2], "ms_cpu": res["cpu"][2]})
+
+
 def backward_entries(bwd_per_shape, per_forward, counts, dtype="float32"):
     """One entry per backward kernel (a bf16 body's named with `_bf16`):
     error the worst over the 7 shapes, times and bound summed over the 16
@@ -3012,6 +3482,9 @@ def main() -> int:
     phase_kernels_r50()
     archs_fwd, archs_fused = phase_archs(entries, bwd_per_shape, bwd_bf16_per_shape)
     acc_fwd, acc_counts = phase_accuracy(per_forward)
+    v1_fwd, v1_counts = phase_track_dlav1(per_forward)
+    ddp_fwd, ddp_fused = phase_ddp(per_forward)
+    phase_psroi()
 
     # All counts are this run's: one forward of the model phase, the serve
     # phase's four forwards (3 `run` + 1 `run_batch`), the train phase's steps.
@@ -3035,6 +3508,11 @@ def main() -> int:
                 f"the tracking training path never launched the kernel at {e['shape']}")
         e["launches_accuracy"] = acc_fwd.get((hw, c, co), 0)
         require(e["launches_accuracy"] > 0, f"the accuracy loop never launched the kernel at {e['shape']}")
+        e["launches_track_dlav1"] = v1_fwd.get((hw, c, co), 0)
+        require(e["launches_track_dlav1"] > 0, f"the dlav1 tracking path never launched the kernel at {e['shape']}")
+        # Counted by shape in each of the ddp phase's processes, and summed.
+        e["launches_ddp"] = ddp_fwd.get((hw, c, co), 0)
+        require(e["launches_ddp"] > 0, f"the data-parallel path never launched the kernel at {e['shape']}")
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
     require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
             "training launches by shape do not add up to the counter")
@@ -3048,6 +3526,10 @@ def main() -> int:
             "the tracking training path's launches by shape do not add up to the counter")
     require(sum(e["launches_accuracy"] for e in entries) == acc_counts["dcn_v2_fwd"],
             "the accuracy loop's launches by shape do not add up to the counter")
+    require(sum(e["launches_track_dlav1"] for e in entries) == v1_counts["dcn_v2_fwd"],
+            "the dlav1 tracking path's launches by shape do not add up to the counter")
+    require(sum(e["launches_ddp"] for e in entries) == sum(ddp_fwd.values()),
+            "the data-parallel path's launches are not all at production shapes")
     fused_entries = {dt: backward_entries(rows, per_forward, counts, dt) for dt, rows, counts in (
         ("float32", bwd_per_shape, train_counts), ("bfloat16", bwd_bf16_per_shape, train_bf16_counts))}
     for dt, rows in fused_entries.items():
@@ -3061,6 +3543,11 @@ def main() -> int:
         if dt == "bfloat16":
             entry["launches_accuracy"] = acc_counts["dcn_v2_bwd_fused_bf16"]
             require(entry["launches_accuracy"] > 0, "the accuracy loop never launched the bf16 fused backward")
+        else:
+            entry["launches_track_dlav1"] = v1_counts["dcn_v2_bwd_fused"]
+            entry["launches_ddp"] = ddp_fused
+            require(entry["launches_track_dlav1"] > 0 and entry["launches_ddp"] > 0,
+                    "the dlav1 tracking or the data-parallel training path never launched the fused backward")
     row_entry = row_kernel_entry(entries, per_forward, track_launches)
     for row in row_entry["per_shape"]:
         _, hw, _, c, co = row["shape"]
@@ -3071,6 +3558,9 @@ def main() -> int:
     # B2's counterpart is B1's float32 body: the tracking training path's float32 launches.
     row_entry["launches_train_track"] = track_train_counts["dcn_v2_fwd"] - track_train_counts["dcn_v2_fwd_bf16"]
     require(row_entry["launches_train_track"] > 0, "the tracking training path never launched the float32 body")
+    # The dlav1 tracking model's float32 frames and steps.
+    row_entry["launches_track_dlav1"] = v1_counts["dcn_v2_fwd"] - v1_counts["dcn_v2_fwd_bf16"]
+    require(row_entry["launches_track_dlav1"] > 0, "the dlav1 tracking path never launched the float32 body")
     summary = {"kernels": entries + [row_entry]
                + fused_entries["float32"] + fused_entries["bfloat16"]}
     # A kernel faster than its bound would mean a wrong bound, not a fast

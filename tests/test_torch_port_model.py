@@ -265,10 +265,13 @@ def test_dla_34_matches_jax():
 
 
 def test_unported_paths_raise():
-    """What is still not ported raises: the dlav1 + tracking GRU routing; an
-    arch the factory does not know is refused."""
-    with pytest.raises(NotImplementedError):      # dlav1 + tracking GRU routing
-        create_model(preset("centerpose", tracking_task=True), device="cpu")
+    """The dlav1 + tracking model, once refused, builds with its 4 GRU steps
+    (`test_torch_port_gru_track.py` holds it against the JAX model); an arch
+    the factory does not know is refused."""
+    model = create_model(preset("centerpose", tracking_task=True, input_h=SIZE, input_w=SIZE),
+                         device="cpu")
+    assert model.convGRU.steps == 4 and model.gru_groups[0] == ("tracking", "tracking_hp")
+    assert hasattr(model.base, "pre_img_layer")
     for arch in ("nope_1", "res_19", "res_x", "resdcn"):
         with pytest.raises(ValueError):
             create_model(preset("centerpose", arch=arch), device="cpu")

@@ -243,10 +243,10 @@ def test_detector_run_batch_matches_jax(detectors):
 
 
 def test_detector_refuses_what_is_not_ported():
-    # The tracking model is dla_34; the dlav1 + tracking 4-step GRU routing
-    # (an idea the reference never tried) is not ported.
-    with pytest.raises(NotImplementedError):
-        Detector(preset("centerpose", tracking_task=True, input_h=64, input_w=64), device="cpu")
+    # The dlav1 + tracking 4-step GRU model (an idea the reference never
+    # tried), once refused, is served (`test_torch_port_gru_track.py`).
+    det = Detector(preset("centerpose_track", arch="dlav1_34", input_h=64, input_w=64), device="cpu")
+    assert det.model.convGRU.steps == 4 and det.tracker is not None
     with pytest.raises(ValueError):           # every arch of the JAX factory is ported
         Detector(preset("centerpose", arch="res_19", input_h=64, input_w=64), device="cpu")
     if not torch.cuda.is_available():
@@ -281,7 +281,10 @@ def test_port_imports_no_jax():
                    "evaluation/relabel.py", "evaluation/evaluator.py", "data/objectron_pb.py",
                    "evaluate.py", "native/__init__.py", "utils/debugger.py", "utils/visualize.py",
                    "training/debug.py", "data/webcam.py", "scripts/__init__.py",
-                   "scripts/probe_dcn_offsets.py", "scripts/accuracy_loop.py"):
+                   "scripts/probe_dcn_offsets.py", "scripts/accuracy_loop.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/step.py", "ops/psroi.py",
+                   "geometry/collision.py", "utils/profiler.py", "scripts/group_report.py",
+                   "scripts/batch_eval.py", "scripts/track_ablation.py", "scripts/ddp_scaling.py"):
         assert f"centerpose_tpu_torch/{module}" in names, module
     # The 3D IoU library is built from the package's own copy of the source.
     from centerpose_tpu_torch import native

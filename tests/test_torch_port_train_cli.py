@@ -5,8 +5,8 @@
 synthetic frames, validation, the checkpoint layout of the JAX CLI
 (`ckpt/`, `best/`, `epoch_N/`, one directory per step), then `--resume`
 from the last checkpoint; every option of the JAX package's `train.py`,
-`demo.py` and `evaluate.py` parses in its twin with the same default, and
-the ones that wait for later work raise; `utils/checkpoint.py`
+`demo.py` and `evaluate.py` parses in its twin with the same default
+(`--num_devices` is trained in `test_torch_port_parallel.py`); `utils/checkpoint.py`
 round-trips a train state and partially initialises a model by name and
 shape.
 """
@@ -112,20 +112,20 @@ def test_cli_trains_res_18(data, tmp_path, monkeypatch):
     assert "deconv_layers.0.weight" in saved["state_dict"]
 
 
-@pytest.mark.parametrize("flags, item", [
-    # the id from when --debug was refused; the debug canvases are ported now
-    pytest.param(["--debug", "1"], None, id="flags0-queue A, debug canvases and webcam"),
-    (["--num_devices", "2"], "queue A, side ops and scale-out"),
+@pytest.mark.parametrize("flags, dest, value", [
+    # the ids from when --debug and --num_devices were refused; both are ported now
+    pytest.param(["--debug", "1"], "debug", 1, id="flags0-queue A, debug canvases and webcam"),
+    pytest.param(["--num_devices", "2"], "num_devices", 2, id="flags1-queue A, side ops and scale-out"),
 ])
-def test_cli_refuses_what_is_not_ported(flags, item, capsys):
-    """Multi-GPU training is refused, naming its ROADMAP.md item; `--debug`
-    (the debug canvases) is ported and accepted."""
-    if item is None:
-        assert train.parse_args(["--data_dir", "d", *flags]).debug == 1
-        return
-    with pytest.raises(SystemExit):
-        train.parse_args(["--data_dir", "d", *flags])
-    assert item in capsys.readouterr().err
+def test_cli_refuses_what_is_not_ported(flags, dest, value):
+    """Nothing the JAX CLI takes is refused any more: `--debug` (the debug
+    canvases) and `--num_devices` (data-parallel ranks) parse. Asking for
+    more GPUs than there are still fails, before anything is built."""
+    assert getattr(train.parse_args(["--data_dir", "d", *flags]), dest) == value
+    if dest == "num_devices":
+        more = str(torch.cuda.device_count() + 1) if torch.cuda.is_available() else "2"
+        with pytest.raises((RuntimeError, ValueError), match="CUDA device|GPU"):
+            train.main(["--data_dir", "d", "--num_devices", more])
 
 
 def _parser_of(parse):

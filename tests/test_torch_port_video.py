@@ -114,8 +114,18 @@ def test_tracking_network_matches_jax(track_model):
 
 
 def test_dlav1_tracking_routing_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        create_model(preset("centerpose", tracking_task=True), device="cpu")
+    """Ported now: in the dlav1 tracking model step 0 of the 4-step GRU feeds
+    `tracking` / `tracking_hp` and step 1 the center heads."""
+    model = create_model(preset("centerpose_track", arch="dlav1_34", input_h=SIZE, input_w=SIZE),
+                         device="cpu")
+    states, seen = [], {}
+    model.convGRU.register_forward_hook(lambda m, i, o: states.extend(o))
+    for head in ("tracking", "tracking_hp", "hm"):
+        getattr(model, head).register_forward_hook(lambda m, i, o, head=head: seen.__setitem__(head, i[0]))
+    with torch.no_grad():
+        model(*[torch.from_numpy(a) for a in _inputs(1, SIZE)])
+    assert len(states) == 4
+    assert seen["tracking"] is states[0] and seen["tracking_hp"] is states[0] and seen["hm"] is states[1]
 
 
 # -------------------------------------------------------------------- video
