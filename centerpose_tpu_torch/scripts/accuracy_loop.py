@@ -110,11 +110,11 @@ def device_line(device: str) -> dict:
     its power limit."""
     import torch
 
+    from centerpose_tpu_torch.utils.card import card_line
+
     if not device.startswith("cuda"):
         return {"kind": "cpu", "nvidia_smi": None}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi.strip().splitlines()[0]}
+    return {"kind": torch.cuda.get_device_name(0), "nvidia_smi": card_line(device)}
 
 
 def main(argv=None) -> dict:

@@ -29,7 +29,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 
@@ -62,13 +61,13 @@ def main(argv=None) -> list:
     from centerpose_tpu_torch.models.factory import create_model
     from centerpose_tpu_torch.parallel import launch
     from centerpose_tpu_torch.parallel.step import train_steps
+    from centerpose_tpu_torch.utils.card import card_line
 
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")          # one host
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     cuda = torch.device(args.device).type == "cuda"
     if cuda:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True).stdout.strip()
+        smi = card_line(args.device)
         print(smi, flush=True)
     ranks = [int(n) for n in args.ranks.split(",") if n]
     cfg = preset("centerpose", arch=args.arch, input_h=args.input_res, input_w=args.input_res,

@@ -14,8 +14,9 @@ architectures (res_18, resdcn_18, dlav0_34, hourglass at 512x512, served
 and trained), the closed accuracy loop (the flagship trained from
 zero-initialised DCN offsets, its offsets probed, evaluated, and the debug
 canvases of the train and demo CLIs), the dlav1 + tracking model (4-step
-ConvGRU) served and trained, and data-parallel training (a world of 1 over
-NCCL, 2 ranks over gloo on the one card) through the entry points a user calls, builds the CUDA
+ConvGRU) served and trained, data-parallel training (a world of 1 over
+NCCL, 2 ranks over gloo on the one card), and the measuring entry points
+(`bench`, `bench_e2e`, `bench_train`, `graft_entry`) through the entry points a user calls, builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and shows that every path really went through
 them. Every phase prints one JSON line; a phase
@@ -294,6 +295,26 @@ Phases:
   psroi    `ops/psroi.py::dcn_v2_psroi_pooling` (torch ops, no kernel of its
            own) on the card against itself on the CPU: 16 ROIs, forward and
            input gradient within 1e-5, ms a call on each.
+  bench    The measuring entry points' twins, in process at their defaults
+           with a fresh process's TF32 switches, random weights from seed 0:
+           `bench.main()` (dlav1_34 bf16 net + decode with the gaussian fit,
+           B=128, 8 iterations a dispatch, 4 timed dispatches; then net and
+           decode timed apart on the same batch), `scripts/bench_e2e.main`
+           in `batch`, `single` and `track` modes (32 generated 480x480
+           frames, 3 repeats), `scripts/bench_train.main()` (bf16, batch 16)
+           and with BENCH_TRAIN_TRACK=1, `graft_entry.entry()`'s `fn` on its
+           [1, 512, 512, 3] input (float32), and
+           `graft_entry.dryrun_multichip(<GPU count>)` (one NCCL rank a GPU,
+           one float32 train step and a 256x256 inference a rank; the
+           inference's 7 half-resolution DCN shapes, which no other phase
+           launches, then held against the plain version at B=1 in float32
+           within 1e-4). Each run:
+           the counters set to 0 just before, read just after (the dryrun's
+           in its ranks); 16 B1 launches a forward by shape at the model
+           phase's mix, in the run's type, and 16 fused B3 launches a train
+           step; the JSON line the twin printed, with the JAX package's keys
+           and a finite value; boxes through PnP in every e2e mode and
+           tracks spawned in `track` mode. One line a run.
 
 Bounds: float32 operations are counted at the rate of float32-accurate
 products on the tensor cores (3xTF32: a third of 495 TFLOP/s), bf16 at 989
@@ -3377,6 +3398,167 @@ def phase_psroi():
           "ms_card": res["cuda"][2], "ms_cpu": res["cpu"][2]})
 
 
+
+# ------------------------------------------------------------------- bench
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def printed_record(text):
+    """The one JSON line a twin printed: the JAX package's keys, a finite
+    value."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    require(len(lines) == 1, f"a twin printed {len(lines)} JSON lines: {lines}")
+    record = json.loads(lines[0])
+    require(list(record) == BENCH_KEYS and np.isfinite(record["value"]) and record["value"] > 0,
+            f"a twin printed {record}")
+    return record
+
+
+def phase_bench(per_forward):
+    """The measuring entry points' twins (`bench.py`, `scripts/bench_e2e.py`,
+    `scripts/bench_train.py`, `graft_entry.py`) at their defaults, as a user
+    runs them: a fresh process's TF32 switches, their own stdout captured.
+    Every counter is set to 0 just before each run and read just after it;
+    each run must launch B1 16 times a forward at the model phase's mix of
+    shapes in its type, and the train runs B3 16 times a step. Returns the
+    runs' forward launches by shape and their launch counts by kernel and
+    type, summed."""
+    import contextlib
+    import io
+
+    from centerpose_tpu_torch import bench, graft_entry
+    from centerpose_tpu_torch.scripts import bench_e2e, bench_train
+
+    t_phase = time.time()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")      # one host: the ranks' rendezvous
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    fwd_by_shape, totals = Counter(), Counter()
+
+    def run(name, fn, forwards, steps, dtype, mix=None):
+        """`fn()` on the card, counted; `forwards` forward and `steps`
+        backward passes in `dtype` expected, at the model phase's mix of
+        shapes (or at `mix`, the run's forward launches by shape). Returns
+        fn's result, the captured stdout and the run's line (not yet
+        emitted)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        reset_launches()                                   # ---- the main path starts
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            result = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts, shapes = launches_now(), Counter(dcn_v2_forward.launches_by_shape)   # ---- and ends
+        if name == "dryrun":                               # the launches are the ranks'
+            for r in result["ranks"]:
+                counts["dcn_v2_fwd"] += r["launches"]["dcn_v2_fwd"]
+                counts["dcn_v2_bwd_fused"] += r["launches"]["dcn_v2_bwd_fused"]
+                shapes += r["launches_by_shape"]
+        bf16 = dtype == "bfloat16"
+        want = {"dcn_v2_fwd": 0 if bf16 else 16 * forwards, "dcn_v2_fwd_bf16": 16 * forwards if bf16 else 0,
+                "dcn_v2_bwd_fused": 0 if bf16 else 16 * steps, "dcn_v2_bwd_fused_bf16": 16 * steps if bf16 else 0,
+                "dcn_v2_bwd_single_term": 0}
+        require(counts == want, f"bench {name}: DCN launches {counts}, want {want}")
+        mix = mix or {k: forwards * v for k, v in per_forward.items()}
+        require(dict(shapes) == dict(mix),
+                f"bench {name}: forward launches by shape {dict(shapes)} in {forwards} forwards, want {dict(mix)}")
+        fwd_by_shape.update(shapes)
+        totals.update(counts)
+        line = {"phase": "bench", "run": name, "dtype": dtype, "wall_s": wall,
+                "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "forwards": forwards, "train_steps": steps, "launches": counts,
+                "launches_by_shape": {"x".join(map(str, k)): v for k, v in shapes.items()}}
+        return result, out.getvalue(), line
+
+    # bench.py: net + decode, then net and decode timed apart on its batch
+    s = bench.settings()
+    record, text, line = run("bench", bench.main, (1 + s["dispatches"]) * s["chain"], 0, "bfloat16")
+    require(printed_record(text) == record and record["metric"] == f"images_per_sec_per_chip_{INPUT}x{INPUT}_dlav1_34",
+            f"bench printed {text!r}")
+    cfg = preset("centerpose", compute_dtype="bfloat16")
+    model = create_model(cfg, DEVICE)
+    images = torch.from_numpy(
+        np.random.RandomState(0).randn(s["batch"], INPUT, INPUT, 3).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        net_ms = time_ms(lambda: model(images), iters=3, warmup=1)
+        heads = {k: v.float() for k, v in model(images).items()}
+        dec_ms = {fit: time_ms(lambda: object_pose_decode(heads, k=cfg.K, rep_mode=cfg.rep_mode,
+                                                          inference=True, fit_gaussian=fit), iters=3, warmup=1)
+                  for fit in (True, False)}
+    del model, images, heads
+    emit({**line, "record": record, "settings": s, "ms_per_batch_net": net_ms,
+          "ms_per_batch_decode": dec_ms[True], "ms_per_batch_decode_without_gaussian_fit": dec_ms[False],
+          "decode_share": dec_ms[True] / (net_ms + dec_ms[True]),
+          "images_per_s_net_decode_apart": s["batch"] / ((net_ms + dec_ms[True]) * 1e-3)})
+
+    # scripts/bench_e2e.py, its three modes at the defaults
+    args = bench_e2e.parse_args(["--mode", "batch"])
+    chunks = args.n_frames // args.batch_size
+    forwards = {"batch": 1 + chunks * (1 + args.repeats), "single": 1 + args.n_frames * args.repeats,
+                "track": min(6, args.n_frames) + args.n_frames * args.repeats}
+    for mode, n in forwards.items():
+        record, text, line = run(f"e2e_{mode}", lambda: bench_e2e.main(["--mode", mode]), n, 0, "bfloat16")
+        require(printed_record(text) == {k: record[k] for k in BENCH_KEYS}, f"bench_e2e {mode} printed {text!r}")
+        detail = record["detail"]
+        require(detail["boxes_per_img"] > 0, f"bench_e2e {mode}: no box through PnP: {detail}")
+        if mode == "track":
+            require(detail["tracks_spawned"] > 0, f"bench_e2e track: no track spawned in the timed loop: {detail}")
+        emit({**line, "record": record, "stdout_lines": len(text.splitlines())})
+
+    # scripts/bench_train.py, the image model and the tracking model
+    s = bench_train.settings()
+    for track in (False, True):
+        if track:
+            os.environ["BENCH_TRAIN_TRACK"] = "1"
+        try:
+            steps = 1 + bench_train.TIMED_STEPS
+            record, text, line = run("train_track" if track else "train", bench_train.main, steps, steps, s["dtype"])
+        finally:
+            os.environ.pop("BENCH_TRAIN_TRACK", None)
+        require(printed_record(text) == record and record["vs_baseline"] is None, f"bench_train printed {text!r}")
+        emit({**line, "record": record, "settings": dict(s, track=track),
+              "ms_per_step_fastest": s["batch"] / record["value"] * 1e3})
+
+    # graft_entry.py: entry()'s fn twice (the second timed), then the dryrun
+    def entry():
+        fn, fn_args = graft_entry.entry()
+        fn(*fn_args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = fn(*fn_args)
+        torch.cuda.synchronize()
+        return dets, (time.perf_counter() - t0) * 1e3
+
+    (dets, entry_ms), _, line = run("entry", entry, 2, 0, "float32")
+    require(tuple(dets["scores"].shape) == (1, 100, 1) and tuple(dets["kps"].shape) == (1, 100, 16)
+            and all(torch.isfinite(v).all() for v in dets.values()), "entry: decode outputs")
+    emit({**line, "ms_second_call": entry_ms})
+    # A rank's train step at `res`, its inference at max(res // 2, 64).
+    n = torch.cuda.device_count()
+    res = graft_entry.dryrun_res(DEVICE)
+    mix = Counter()
+    for side in (res, max(res // 2, 64)):
+        mix.update({(h * side // INPUT, c, co): n * v for (h, c, co), v in per_forward.items()})
+    result, text, line = run("dryrun", lambda: graft_entry.dryrun_multichip(n), 2 * n, n, "float32", mix)
+    require(f"dryrun_multichip({n}) train OK" in text and f"dryrun_multichip({n}) inference OK" in text,
+            f"dryrun printed {text!r}")
+    # The inference's half-resolution shapes are launched by no other phase:
+    # the float32 body at each, B=1, against the plain version (TF32 off).
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    half = {}
+    for h, c, co in sorted(k for k in mix if k not in per_forward):
+        err, scale = check_case(make_case(0, 1, h, c, co, torch.float32, "uniform"), torch.float32)
+        half["x".join(map(str, (h, c, co)))] = err
+        require(err <= TOL_F32, f"dryrun shape {(h, c, co)}: kernel vs plain {err} (output max {scale})")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS
+    emit({**line, "printed": text.splitlines(), "ranks": n, "res": result["res"],
+          "infer_res": result["infer_res"], "loss": result["loss"],
+          "half_res_shapes_b1_f32_max_abs_err": half, "seconds": time.time() - t_phase})
+    return fwd_by_shape, totals
+
+
 def backward_entries(bwd_per_shape, per_forward, counts, dtype="float32"):
     """One entry per backward kernel (a bf16 body's named with `_bf16`):
     error the worst over the 7 shapes, times and bound summed over the 16
@@ -3485,6 +3667,7 @@ def main() -> int:
     v1_fwd, v1_counts = phase_track_dlav1(per_forward)
     ddp_fwd, ddp_fused = phase_ddp(per_forward)
     phase_psroi()
+    bench_fwd, bench_counts = phase_bench(per_forward)
 
     # All counts are this run's: one forward of the model phase, the serve
     # phase's four forwards (3 `run` + 1 `run_batch`), the train phase's steps.
@@ -3513,6 +3696,8 @@ def main() -> int:
         # Counted by shape in each of the ddp phase's processes, and summed.
         e["launches_ddp"] = ddp_fwd.get((hw, c, co), 0)
         require(e["launches_ddp"] > 0, f"the data-parallel path never launched the kernel at {e['shape']}")
+        e["launches_bench"] = bench_fwd.get((hw, c, co), 0)
+        require(e["launches_bench"] > 0, f"the measuring entry points never launched the kernel at {e['shape']}")
     require(sum(e["launches"] for e in entries) == launches, "launches by shape do not add up to the counter")
     require(sum(e["launches_train"] for e in entries) == train_counts["dcn_v2_fwd"],
             "training launches by shape do not add up to the counter")
@@ -3548,6 +3733,8 @@ def main() -> int:
             entry["launches_ddp"] = ddp_fused
             require(entry["launches_track_dlav1"] > 0 and entry["launches_ddp"] > 0,
                     "the dlav1 tracking or the data-parallel training path never launched the fused backward")
+        entry["launches_bench"] = bench_counts["dcn_v2_bwd_fused_bf16" if dt == "bfloat16" else "dcn_v2_bwd_fused"]
+        require(entry["launches_bench"] > 0, f"the measuring entry points never launched the fused backward ({dt})")
     row_entry = row_kernel_entry(entries, per_forward, track_launches)
     for row in row_entry["per_shape"]:
         _, hw, _, c, co = row["shape"]
@@ -3561,6 +3748,9 @@ def main() -> int:
     # The dlav1 tracking model's float32 frames and steps.
     row_entry["launches_track_dlav1"] = v1_counts["dcn_v2_fwd"] - v1_counts["dcn_v2_fwd_bf16"]
     require(row_entry["launches_track_dlav1"] > 0, "the dlav1 tracking path never launched the float32 body")
+    # `entry()` and the dryrun run the float32 body.
+    row_entry["launches_bench"] = bench_counts["dcn_v2_fwd"]
+    require(row_entry["launches_bench"] > 0, "the measuring entry points never launched the float32 body")
     summary = {"kernels": entries + [row_entry]
                + fused_entries["float32"] + fused_entries["bfloat16"]}
     # A kernel faster than its bound would mean a wrong bound, not a fast

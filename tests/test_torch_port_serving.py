@@ -284,7 +284,9 @@ def test_port_imports_no_jax():
                    "scripts/probe_dcn_offsets.py", "scripts/accuracy_loop.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/step.py", "ops/psroi.py",
                    "geometry/collision.py", "utils/profiler.py", "scripts/group_report.py",
-                   "scripts/batch_eval.py", "scripts/track_ablation.py", "scripts/ddp_scaling.py"):
+                   "scripts/batch_eval.py", "scripts/track_ablation.py", "scripts/ddp_scaling.py",
+                   "bench.py", "graft_entry.py", "scripts/bench_e2e.py", "scripts/bench_train.py",
+                   "utils/card.py"):
         assert f"centerpose_tpu_torch/{module}" in names, module
     # The 3D IoU library is built from the package's own copy of the source.
     from centerpose_tpu_torch import native
