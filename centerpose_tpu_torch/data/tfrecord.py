@@ -17,9 +17,9 @@ Only the feature keys the evaluator consumes are surfaced (image, 2D/3D points,
 instance counts, scales, poses, visibility, camera matrices, plane).
 
 The PyTorch package's own copy of `centerpose_tpu/data/tfrecord.py` (the
-TensorBoard writer `utils/tbevents.py` frames its records with it), and of
-`scripts/synth_to_tfrecords.py`'s packing of DOPE frames into records
-(`pack_dope_video`, `pack_dope_dataset`).
+TensorBoard writer `utils/tbevents.py` frames its records with it), and the
+packing of DOPE frames into records (`pack_dope_video`, `pack_dope_dataset`)
+that `python -m centerpose_tpu_torch.scripts.synth_to_tfrecords` runs.
 """
 
 from __future__ import annotations
@@ -53,6 +53,14 @@ def _crc32c(data: bytes) -> int:
 def _masked_crc(data: bytes) -> int:
     crc = _crc32c(data)
     return ((crc >> 15) | (crc << 17)) + 0xA282EAD8 & 0xFFFFFFFF
+
+
+def record_paths(records: str) -> List[str]:
+    """The files of a tfrecord path or glob, sorted (a path without a glob
+    character is taken as it is)."""
+    import glob
+
+    return sorted(glob.glob(records)) if any(ch in records for ch in "*?[") else [records]
 
 
 def read_tfrecord(path: str, verify_crc: bool = False) -> Iterator[bytes]:
@@ -116,17 +124,20 @@ def _iter_fields(buf: bytes) -> Iterator[Tuple[int, int, bytes]]:
 
 
 class Feature:
-    __slots__ = ("bytes_list", "float_list", "int64_list")
+    __slots__ = ("bytes_list", "float_list", "int64_list", "kind")
 
     def __init__(self):
         self.bytes_list: List[bytes] = []
         self.float_list: List[float] = []
         self.int64_list: List[int] = []
+        self.kind: Optional[str] = None  # bytes | float | int64, as `make_example` takes it
 
 
 def _parse_feature(buf: bytes) -> Feature:
     feat = Feature()
     for field, wtype, val in _iter_fields(buf):
+        if field in (1, 2, 3):
+            feat.kind = ("bytes", "float", "int64")[field - 1]
         if field == 1:  # BytesList
             for f2, _, v2 in _iter_fields(val):
                 if f2 == 1:
@@ -220,6 +231,16 @@ def make_example(features: Dict[str, tuple]) -> bytes:
         entry = _len_field(1, key.encode()) + _len_field(2, feat)
         entries += _len_field(1, entry)
     return _len_field(1, entries)  # Example.features
+
+
+def rename_example(buf: bytes, filename: str) -> bytes:
+    """The tf.Example `buf` with `image/filename` set to `filename` and every
+    other feature as it was (`parse_example` -> `make_example`): how a shard
+    built for a test gives generated frames Objectron's names,
+    `<category>/batch-N/<video>/<frame>`."""
+    features = {key: (f.kind, getattr(f, f"{f.kind}_list")) for key, f in parse_example(buf).items()}
+    features["image/filename"] = ("bytes", [filename.encode()])
+    return make_example(features)
 
 
 # ------------------------------------------------------------ objectron layer
@@ -319,8 +340,9 @@ def parse_objectron_example(buf: bytes) -> Dict[str, object]:
 # --------------------------------------------------------- DOPE -> tfrecord
 def pack_dope_video(vdir: str, out_path: str, category: str) -> int:
     """One tfrecord of a DOPE video directory's png + json frames, in order,
-    in the Objectron layout `parse_objectron_example` reads (the records of
-    `scripts/synth_to_tfrecords.py`, byte for byte): `point_2d` as [x / width,
+    in the Objectron layout `parse_objectron_example` reads (what
+    `scripts/synth_to_tfrecords.py` writes, in either package, byte for
+    byte): `point_2d` as [x / width,
     y / height, 1] per keypoint, points, poses and plane in the OpenGL
     camera frame, `camera/intrinsics` stored transposed as Objectron's are
     (the reader swaps fx/fy and cx/cy back). Returns the number of frames."""

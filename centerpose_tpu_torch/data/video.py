@@ -10,9 +10,10 @@ This module provides:
     no external binary at all;
   * `FFmpegReader` — everything else (mp4/webm) via an ffmpeg subprocess pipe,
     gated on the binary being present (it raises a clear error without it);
-  * `open_video` — picks the reader for a path.
-The JAX package's `write_mjpeg_avi` (the demo's video output) is not copied:
-the demo here writes JSON only.
+  * `open_video` — picks the reader for a path;
+  * `write_mjpeg_avi` — RGB frames to a Motion-JPEG AVI (the bytes of the JAX
+    package's writer for the same frames, fps and quality), which the
+    MJPEG reader above reads back.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import os
 import shutil
 import struct
 import subprocess
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -163,6 +164,62 @@ class MJPEGAVIReader:
             buf = self._data[off : off + size]
             img = Image.open(io.BytesIO(buf)).convert("RGB")
             yield np.asarray(img)
+
+
+def write_mjpeg_avi(
+    path: str,
+    frames: Sequence[np.ndarray],
+    fps: float = 15.0,
+    quality: int = 90,
+) -> None:
+    """Write RGB uint8 frames as a Motion-JPEG AVI (`MJPEGAVIReader` and
+    `open_video` read it back)."""
+    from PIL import Image
+
+    jpegs = []
+    h, w = frames[0].shape[:2]
+    for fr in frames:
+        bio = io.BytesIO()
+        Image.fromarray(np.asarray(fr, np.uint8)).save(
+            bio, format="JPEG", quality=quality
+        )
+        jpegs.append(bio.getvalue())
+
+    def chunk(fourcc: bytes, body: bytes) -> bytes:
+        pad = b"\x00" if len(body) & 1 else b""
+        return fourcc + struct.pack("<I", len(body)) + body + pad
+
+    usec = int(round(1e6 / fps))
+    n = len(jpegs)
+    bufsize = max(len(j) for j in jpegs)
+    avih = struct.pack(
+        "<14I", usec, bufsize * int(fps + 1), 0, 0x10, n, 0, 1, bufsize, w, h,
+        0, 0, 0, 0,
+    )
+    strh = (
+        b"vids" + b"MJPG"
+        + struct.pack("<10I", 0, 0, 0, 1, int(round(fps)), 0, n, bufsize,
+                      0xFFFFFFFF, 0)
+        + struct.pack("<4H", 0, 0, w, h)
+    )
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3,
+                       0, 0, 0, 0)
+    hdrl = chunk(
+        b"LIST",
+        b"hdrl" + chunk(b"avih", avih)
+        + chunk(b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)),
+    )
+    movi_items, idx, off = [], [], 4
+    for j in jpegs:
+        ck = chunk(b"00dc", j)
+        movi_items.append(ck)
+        idx.append(struct.pack("<4sIII", b"00dc", 0x10, off, len(j)))
+        off += len(ck)
+    movi = chunk(b"LIST", b"movi" + b"".join(movi_items))
+    idx1 = chunk(b"idx1", b"".join(idx))
+    riff = chunk(b"RIFF", b"AVI " + hdrl + movi + idx1)
+    with open(path, "wb") as f:
+        f.write(riff)
 
 
 class Y4MReader:

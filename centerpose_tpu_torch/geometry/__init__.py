@@ -6,4 +6,8 @@ from centerpose_tpu_torch.geometry.affine import (  # noqa: F401
     transform_preds,
     warp_affine,
 )
-from centerpose_tpu_torch.geometry.cuboid import cuboid_vertices  # noqa: F401
+from centerpose_tpu_torch.geometry.cuboid import (  # noqa: F401
+    CUBOID_EDGES,
+    CuboidVertexType,
+    cuboid_vertices,
+)

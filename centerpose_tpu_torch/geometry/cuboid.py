@@ -13,15 +13,34 @@ binary-counting order over (x, y, z) sign bits:
 with size3d = (width=x, height=y, depth=z). Objectron's 9-point annotation prepends
 the box center at index 0; keypoint heads use only the 8 corners in this order.
 
-The PyTorch package's own copy of `centerpose_tpu/geometry/cuboid.py::cuboid_vertices`
-and `CUBOID_EDGES`.
+The PyTorch package's own copy of `centerpose_tpu/geometry/cuboid.py`.
 """
 
 from __future__ import annotations
 
+import enum
 from typing import Tuple
 
 import numpy as np
+
+
+class CuboidVertexType(enum.IntEnum):
+    """Named corner semantics (enum values match the reference enum, which is a
+    *different* numbering from the emitted vertex order documented above)."""
+
+    FrontTopRight = 0
+    FrontTopLeft = 1
+    FrontBottomLeft = 2
+    FrontBottomRight = 3
+    RearTopRight = 4
+    RearTopLeft = 5
+    RearBottomLeft = 6
+    RearBottomRight = 7
+    Center = 8
+
+    TotalCornerVertexCount = 8
+    TotalVertexCount = 9
+
 
 # Edges as index pairs into the 8-corner binary ordering (for visualization).
 # Two corners share an edge iff their sign-bit patterns differ in exactly one bit.
@@ -54,3 +73,10 @@ def cuboid_vertices(size3d, include_center: bool = False) -> np.ndarray:
     if include_center:
         return np.vstack([np.zeros((1, 3)), corners])
     return corners
+
+
+def normalized_cuboid(scale) -> np.ndarray:
+    """Unit cuboid used by the PnP shell: scale normalized by its y (height)
+    component (`cuboid_pnp_shell.py:12`: `Cuboid3d(scale / scale[1])`)."""
+    scale = np.asarray(scale, dtype=np.float64)
+    return cuboid_vertices(scale / scale[1])

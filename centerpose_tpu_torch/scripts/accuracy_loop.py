@@ -16,8 +16,8 @@ centerpose_tpu_torch.evaluate --mode metric` on the `best` checkpoint and
 the held-out frames, then `python -m centerpose_tpu_torch.scripts.
 probe_dcn_offsets` on the first 8 held-out frames for a freshly built model
 and for the trained one. The data come from this
-package's generator (`data/synthetic.py::generate_dataset`, the same files
-as the JAX package's `scripts/make_synthetic_dataset.py`): training videos
+package's generator (`data/synthetic.py::generate_dataset`, the files of
+`python -m centerpose_tpu_torch.scripts.make_synthetic_dataset`): training videos
 from seed 0, held-out ones from seed 777, each frame an independent scene.
 
 Writes `--out` (default `<work_dir>/ACCURACY.json`) with the JAX artifact's

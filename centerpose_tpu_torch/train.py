@@ -8,8 +8,9 @@ src/main_CenterPose.py:25-191, src/main_CenterPoseTrack.py:118-242): seed, model
 partial init, the epoch loop with periodic validation, best / last /
 periodic checkpoints, LR ÷10 at the `--lr_step` epochs (a function of the
 update count, `training/trainer.py::make_lr_schedule`). DATA is a tree of
-DOPE-style png+json frames (`data/synthetic.py`, or
-`scripts/make_synthetic_dataset.py`).
+DOPE-style png+json frames (`data/synthetic.py`, or `python -m
+centerpose_tpu_torch.scripts.make_synthetic_dataset`; Objectron records
+through `scripts/preprocess_tfrecords.py`).
 
 `--tracking_task` trains the tracking model: `preset("centerpose_track")`
 with the arch dla_34 whatever `--arch` says, as the JAX CLI does; its

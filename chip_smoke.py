@@ -15,8 +15,10 @@ and trained), the closed accuracy loop (the flagship trained from
 zero-initialised DCN offsets, its offsets probed, evaluated, and the debug
 canvases of the train and demo CLIs), the dlav1 + tracking model (4-step
 ConvGRU) served and trained, data-parallel training (a world of 1 over
-NCCL, 2 ranks over gloo on the one card), and the measuring entry points
-(`bench`, `bench_e2e`, `bench_train`, `graft_entry`) through the entry points a user calls, builds the CUDA
+NCCL, 2 ranks over gloo on the one card), the measuring entry points
+(`bench`, `bench_e2e`, `bench_train`, `graft_entry`) and the data-preparation
+scripts (generated frames to tfrecords, a shuffled shard re-sorted by video,
+training pairs, on which the flagship is trained and evaluated) through the entry points a user calls, builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and shows that every path really went through
 them. Every phase prints one JSON line; a phase
@@ -197,6 +199,31 @@ Phases:
            `Detector.run` and the evaluator (`evaluate_image`; `report` +
            `report_dict`), num_gt / num_pred, AP at the report points,
            losses, ms per batch.
+  prep     The data-preparation twins, each `main(argv)` in process in a
+           temporary directory: `scripts/make_synthetic_dataset` (4 videos x
+           6 frames of 480x480, seed 0), `scripts/synth_to_tfrecords` (`--c
+           shoe`, one record per video), one shuffled shard of every frame
+           renamed `shoe/batch-0/<video>/<index>` (Objectron's naming) in a
+           seeded permutation, `scripts/prepare_test_videos` on it (required:
+           one file per video holding its video's payloads in frame order,
+           byte for byte), `scripts/preprocess_tfrecords` on the re-sorted
+           records (required: every frame back, each object's projected
+           cuboid within 1 px of the generator's, location, quaternion up to
+           sign, scale, keypoints and intrinsics within PREP_TOL) and again
+           with `--max_frames 16` (the same files as the full run's first
+           16). Then `train.main` on those 16 pairs (dlav1_34 at 512x512,
+           bf16, batch 8: one epoch of 2 steps, validated on all 24 pairs,
+           2 loader threads) and `evaluate.main --mode metric --tfrecords`
+           on the re-sorted records with the run's checkpoint (float32,
+           vis_thresh 0.05), with a fresh process's TF32 switches. Counters
+           set to 0 before the training and read after the evaluation:
+           16 bf16 B1 launches a step and a validation batch, 16 bf16 B3 a
+           step, 16 float32 B1 an image, each run at the model phase's mix
+           of shapes; num_gt the objects generated, APs finite; then the
+           first step's first DCN call (16x16, 512 -> 256, batch 8) forward
+           and fused backward on its own operands against the plain
+           versions. Prints each stage's seconds, the frames in and out, the
+           launches by shape and the card's name and power limit.
   kernels_r50
            resdcn_50's first DCN at 512x512 (16x16, C 2048 -> Co 256, K = 9 x
            2048, a K no DLA shape has) at batch 8: the forward in float32 and
@@ -2536,6 +2563,198 @@ def phase_evaluate():
             "tracking": runs["tracking"]["shapes"]}
 
 
+# -------------------------------------------------------------------- prep
+PREP_VIDEOS, PREP_FRAMES = 4, 6            # 480x480 frames from make_synthetic_dataset, seed 0
+PREP_TRAIN_FRAMES = 16                     # preprocess_tfrecords --max_frames: 2 steps at batch 8
+PREP_TOL = 1e-5                            # location, quaternion, scale, intrinsics after the round trip
+
+
+def prepared_frames_match(frames_dir: str, pairs_dir: str) -> int:
+    """Every generated frame under `frames_dir/video_<v>/<f:06d>` is back
+    under `pairs_dir/shoe/shoe_batch-0_video_<v>/<f:05d>` with the
+    generator's annotation: each object's projected cuboid within 1 px (the
+    int truncation), location, quaternion (up to sign), scale, keypoints and
+    the intrinsics within PREP_TOL. Returns the objects compared."""
+    def close(a, b):
+        return np.allclose(a, b, rtol=PREP_TOL, atol=PREP_TOL)
+
+    n = 0
+    for video in sorted(os.listdir(frames_dir)):
+        for name in sorted(os.listdir(os.path.join(frames_dir, video))):
+            if not name.endswith(".json"):
+                continue
+            base = os.path.join(pairs_dir, "shoe", f"shoe_batch-0_{video}", f"{int(name[:-5]):05d}")
+            require(os.path.isfile(base + ".png") and os.path.isfile(base + ".json"),
+                    f"prep: {video}/{name} did not come back from preprocess_tfrecords")
+            with open(os.path.join(frames_dir, video, name)) as fh:
+                src = json.load(fh)
+            with open(base + ".json") as fh:
+                got = json.load(fh)
+            intr = [[d["intrinsics"][k] for k in ("fx", "fy", "cx", "cy")]
+                    for d in (src["camera_data"], got["camera_data"])]
+            require(close(*intr) and image_size(base + ".png") == (src["camera_data"]["width"],
+                                                                   src["camera_data"]["height"]),
+                    f"prep: {base}: intrinsics {intr[1]} for {intr[0]}, or the image's size")
+            require(len(got["objects"]) == len(src["objects"]) > 0, f"prep: {base}: objects")
+            for o, s in zip(got["objects"], src["objects"]):
+                q, qs = np.asarray(o["quaternion_xyzw"]), np.asarray(s["quaternion_xyzw"])
+                require(np.abs(np.asarray(o["projected_cuboid"]) - np.asarray(s["projected_cuboid"])[:9]).max() < 1
+                        and close(o["location"], s["location"]) and close(o["scale"], s["scale"])
+                        and close(o["keypoints_3d"], np.asarray(s["keypoints_3d"])[:9])
+                        and close(q * np.sign(q @ qs), qs),
+                        f"prep: {base}: {o} is not the generator's {s}")
+                n += 1
+    return n
+
+
+def phase_prep(per_forward):
+    """The data-preparation twins' chain, each `main(argv)` in process, then
+    the flagship trained and evaluated on what it prepared (see the module
+    docstring). Returns the DCN forward launches by shape and the launch
+    counts of the train and evaluate runs."""
+    import glob
+    import tempfile
+
+    from centerpose_tpu_torch import evaluate as evaluate_cli
+    from centerpose_tpu_torch import train as train_cli
+    from centerpose_tpu_torch.data.tfrecord import read_tfrecord, rename_example, write_tfrecord
+    from centerpose_tpu_torch.scripts import (
+        make_synthetic_dataset,
+        prepare_test_videos,
+        preprocess_tfrecords,
+        synth_to_tfrecords,
+    )
+
+    torch.cuda.empty_cache()
+    fused = dcn_bwd.dcn_v2_bwd_fused
+    cwd = os.getcwd()
+    stages, frames = {}, {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as tmp:
+        d = {k: os.path.join(tmp, k) for k in ("frames", "records", "resorted", "pairs", "train_pairs")}
+
+        def stage(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            stages[name] = time.perf_counter() - t0
+            return out
+
+        # 1-2: generated frames, one record per video.
+        frames["generated"] = len(stage("make_synthetic_dataset", lambda: make_synthetic_dataset.main(
+            ["--out", d["frames"], "--n_videos", str(PREP_VIDEOS), "--frames", str(PREP_FRAMES),
+             "--seed", "0"])))
+        records = stage("synth_to_tfrecords", lambda: synth_to_tfrecords.main(
+            ["--data_dir", d["frames"], "--out_dir", d["records"], "--c", "shoe"]))
+        frames["records"] = sum(records.values())
+        # 3: one shuffled shard, every frame under an Objectron-style name.
+        t0 = time.perf_counter()
+        by_video, shard = {}, []
+        for path in sorted(records):
+            video = os.path.splitext(os.path.basename(path))[0]
+            by_video[video] = [rename_example(p, f"shoe/batch-0/{video}/{i}")
+                               for i, p in enumerate(read_tfrecord(path))]
+            shard += by_video[video]
+        shard_path = os.path.join(tmp, "shoe_shuffled.tfrecord")
+        write_tfrecord(shard_path, [shard[i] for i in np.random.RandomState(0).permutation(len(shard))])
+        stages["shuffled_shard"] = time.perf_counter() - t0
+        frames["shard"] = len(shard)
+        # 4: re-sorted into per-video records: each its video's payloads in order.
+        resorted = stage("prepare_test_videos", lambda: prepare_test_videos.main(
+            ["--records", shard_path, "--out_dir", d["resorted"]]))
+        want = {os.path.join(d["resorted"], f"shoe_batch-0_{v}.tfrecord"): p for v, p in by_video.items()}
+        require(sorted(resorted) == sorted(want), f"prep: re-sorted into {sorted(resorted)}, not {sorted(want)}")
+        for path, payloads in want.items():
+            require(list(read_tfrecord(path, verify_crc=True)) == payloads,
+                    f"prep: {path} does not hold its video's payloads in frame order")
+        frames["resorted"] = sum(resorted.values())
+        # 5: training pairs, all of them and the first PREP_TRAIN_FRAMES.
+        glob_resorted = os.path.join(d["resorted"], "*.tfrecord")
+        frames["pairs"] = stage("preprocess_tfrecords", lambda: preprocess_tfrecords.main(
+            ["--records", glob_resorted, "--out_dir", d["pairs"], "--category", "shoe"]))
+        n_objects = prepared_frames_match(d["frames"], d["pairs"])
+        frames["train_pairs"] = stage("preprocess_tfrecords_max_frames", lambda: preprocess_tfrecords.main(
+            ["--records", glob_resorted, "--out_dir", d["train_pairs"], "--category", "shoe",
+             "--max_frames", str(PREP_TRAIN_FRAMES)]))
+        cut = sorted(glob.glob(os.path.join(d["train_pairs"], "shoe", "*", "*")))
+        require(frames["pairs"] == frames["generated"] == PREP_VIDEOS * PREP_FRAMES
+                and frames["train_pairs"] == PREP_TRAIN_FRAMES == len(cut) // 2,
+                f"prep: frames {frames}, {len(cut)} files under --max_frames")
+        for path in cut:
+            with open(path, "rb") as fh, open(path.replace(d["train_pairs"], d["pairs"]), "rb") as full:
+                require(fh.read() == full.read(), f"prep: --max_frames wrote {path} unlike the full run")
+
+        # 6-7: train on the prepared pairs, evaluate the re-sorted records.
+        exp_id = "chip_smoke_prep"
+        train_argv = ["--data_dir", d["train_pairs"], "--val_dir", d["pairs"], "--arch", "dlav1_34",
+                      "--input_res", str(INPUT), "--compute_dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+                      "--num_epochs", "1", "--val_intervals", "1", "--num_workers", "2", "--exp_id", exp_id]
+        eval_argv = ["--mode", "metric", "--tfrecords", glob_resorted, "--c", "shoe", "--arch", "dlav1_34",
+                     "--input_res", str(INPUT), "--vis_thresh", str(EVAL_VIS_THRESH),
+                     "--load_model", os.path.join(tmp, "exp", "dlav1_34", exp_id, "ckpt")]
+        os.chdir(tmp)
+        script_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS
+        record = {}
+        undo = spy_dcn_call(record)
+        try:
+            reset_launches()
+            summary = stage("train", lambda: train_cli.main(train_argv))
+            train = {"fwd_bf16": dcn_v2_forward.launches_bf16, "fwd_f32": dcn_v2_forward.launches
+                     - dcn_v2_forward.launches_bf16, "bwd_bf16": fused.launches_bf16,
+                     "bwd_f32": fused.launches - fused.launches_bf16,
+                     "by_shape": Counter(dcn_v2_forward.launches_by_shape)}
+            out = stage("evaluate", lambda: evaluate_cli.main(eval_argv))
+            counts = {"dcn_v2_fwd": dcn_v2_forward.launches, "dcn_v2_fwd_bf16": dcn_v2_forward.launches_bf16,
+                      "dcn_v2_bwd_fused": fused.launches,
+                      "dcn_v2_bwd_fused_bf16": fused.launches_bf16}           # ---- the main path ends
+            all_fwd = Counter(dcn_v2_forward.launches_by_shape)
+        finally:
+            undo()
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = script_tf32
+            os.chdir(cwd)
+
+    steps = PREP_TRAIN_FRAMES // TRAIN_BATCH
+    val_batches = -(-frames["pairs"] // TRAIN_BATCH)
+    n_images = frames["pairs"]
+    require(summary["step"] == steps and all(np.isfinite(summary["loss_per_step"]))
+            and np.isfinite(summary["epochs"][0]["val"]["loss"]),
+            f"prep train: step {summary['step']}, losses {summary['loss_per_step']}")
+    require(train == {"fwd_bf16": 16 * (steps + val_batches), "fwd_f32": 0, "bwd_bf16": 16 * steps, "bwd_f32": 0,
+                      "by_shape": Counter({k: (steps + val_batches) * v for k, v in per_forward.items()})},
+            f"prep train: launches {train} for {steps} steps and {val_batches} validation batches")
+    eval_fwd = all_fwd - train["by_shape"]
+    require(counts["dcn_v2_fwd"] - counts["dcn_v2_fwd_bf16"] == 16 * n_images
+            and counts["dcn_v2_fwd_bf16"] == train["fwd_bf16"] and counts["dcn_v2_bwd_fused"] == train["bwd_bf16"]
+            and eval_fwd == Counter({k: n_images * v for k, v in per_forward.items()}),
+            f"prep evaluate: launches {counts}, by shape {dict(eval_fwd)}, for {n_images} images")
+    report = out["report"]
+    require(report["num_gt"] == n_objects and all(np.isfinite(f["curve"]).all() for f in report["families"].values()),
+            f"prep evaluate: num_gt {report['num_gt']} for {n_objects} objects, or AP not finite")
+    # The first step's first DCN call, held after the counts are read.
+    x = record["args"][0]
+    require(tuple(x.shape) == (TRAIN_BATCH, INPUT // 32, INPUT // 32, 512) and x.dtype == torch.bfloat16,
+            f"prep: the recorded DCN call is {tuple(x.shape)} {x.dtype}")
+    step_vs_plain = {"forward": check_step_forward(record), "backward": check_step_backward(record, "bfloat16")}
+    del record
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "prep", "config": "dlav1_34 512x512: trained bf16 batch 8, evaluated float32",
+        "nvidia_smi": nvidia_smi_line(), "stage_seconds": stages, "frames": frames,
+        "videos": {"generated": PREP_VIDEOS, "records": len(records), "resorted": len(resorted)},
+        "objects": n_objects, "train": {"steps": summary["step"], "loss_per_step": summary["loss_per_step"],
+                                        "val_loss": summary["epochs"][0]["val"]["loss"],
+                                        "ms_per_step": summary["ms_per_step"],
+                                        "loader_wait_share": summary["loader_wait_share"]},
+        "evaluate": {"images": n_images, "num_gt": report["num_gt"], "num_pred": report["num_pred"],
+                     "ap": {f: v["ap"] for f, v in report["families"].items()}},
+        "launches": counts,
+        "launches_by_shape": {"train_bf16": {"x".join(map(str, k)): v for k, v in train["by_shape"].items()},
+                              "evaluate_float32": {"x".join(map(str, k)): v for k, v in eval_fwd.items()}},
+        "step_vs_plain": step_vs_plain, "seconds": time.time() - t_phase,
+    })
+    return all_fwd, counts
+
+
 # ------------------------------------------------------------------- archs
 # The other architectures of the factory, at full width and depth (512x512,
 # the JAX preset's head_conv 256): their DCN blocks per forward (resdcn's
@@ -3661,6 +3880,7 @@ def main() -> int:
     phase_train_cli()
     track_train_fwd, track_train_counts = phase_train_track(per_forward)
     eval_counts = phase_evaluate()
+    prep_fwd, prep_counts = phase_prep(per_forward)
     phase_kernels_r50()
     archs_fwd, archs_fused = phase_archs(entries, bwd_per_shape, bwd_bf16_per_shape)
     acc_fwd, acc_counts = phase_accuracy(per_forward)
@@ -3686,6 +3906,8 @@ def main() -> int:
         e["launches_archs"] = archs_fwd.get((hw, c, co), 0)
         e["launches_evaluate"] = eval_counts["image"].get((hw, c, co), 0)
         require(e["launches_evaluate"] > 0, f"the evaluate path never launched the kernel at {e['shape']}")
+        e["launches_prep"] = prep_fwd.get((hw, c, co), 0)
+        require(e["launches_prep"] > 0, f"training and evaluating on prepared data never launched the kernel at {e['shape']}")
         e["launches_train_track"] = track_train_fwd.get((hw, c, co), 0)
         require(e["launches_train_track"] > 0,
                 f"the tracking training path never launched the kernel at {e['shape']}")
@@ -3707,6 +3929,8 @@ def main() -> int:
             "the archs phase's forward launches are not all at production shapes")
     require(sum(e["launches_evaluate"] for e in entries) == sum(eval_counts["image"].values()),
             "the evaluate phase's image-model launches are not all at production shapes")
+    require(sum(e["launches_prep"] for e in entries) == prep_counts["dcn_v2_fwd"],
+            "the prep phase's launches by shape do not add up to the counter")
     require(sum(e["launches_train_track"] for e in entries) == track_train_counts["dcn_v2_fwd"],
             "the tracking training path's launches by shape do not add up to the counter")
     require(sum(e["launches_accuracy"] for e in entries) == acc_counts["dcn_v2_fwd"],
@@ -3728,6 +3952,8 @@ def main() -> int:
         if dt == "bfloat16":
             entry["launches_accuracy"] = acc_counts["dcn_v2_bwd_fused_bf16"]
             require(entry["launches_accuracy"] > 0, "the accuracy loop never launched the bf16 fused backward")
+            entry["launches_prep"] = prep_counts["dcn_v2_bwd_fused_bf16"]
+            require(entry["launches_prep"] > 0, "training on prepared data never launched the bf16 fused backward")
         else:
             entry["launches_track_dlav1"] = v1_counts["dcn_v2_bwd_fused"]
             entry["launches_ddp"] = ddp_fused
@@ -3742,6 +3968,9 @@ def main() -> int:
     row_entry["launches_evaluate"] = sum(row["launches_evaluate"] for row in row_entry["per_shape"])
     require(row_entry["launches_evaluate"] == sum(eval_counts["tracking"].values()) > 0,
             "the evaluate phase's tracking launches are not all at production shapes")
+    # The prep phase's evaluation runs the float32 body.
+    row_entry["launches_prep"] = prep_counts["dcn_v2_fwd"] - prep_counts["dcn_v2_fwd_bf16"]
+    require(row_entry["launches_prep"] > 0, "evaluating the prepared records never launched the float32 body")
     # B2's counterpart is B1's float32 body: the tracking training path's float32 launches.
     row_entry["launches_train_track"] = track_train_counts["dcn_v2_fwd"] - track_train_counts["dcn_v2_fwd_bf16"]
     require(row_entry["launches_train_track"] > 0, "the tracking training path never launched the float32 body")

@@ -286,7 +286,10 @@ def test_port_imports_no_jax():
                    "geometry/collision.py", "utils/profiler.py", "scripts/group_report.py",
                    "scripts/batch_eval.py", "scripts/track_ablation.py", "scripts/ddp_scaling.py",
                    "bench.py", "graft_entry.py", "scripts/bench_e2e.py", "scripts/bench_train.py",
-                   "utils/card.py"):
+                   "utils/card.py", "geometry/__init__.py", "geometry/cuboid.py",
+                   "scripts/make_synthetic_dataset.py", "scripts/synth_to_tfrecords.py",
+                   "scripts/preprocess_tfrecords.py", "scripts/prepare_test_videos.py",
+                   "scripts/preprocess_videos.py"):
         assert f"centerpose_tpu_torch/{module}" in names, module
     # The 3D IoU library is built from the package's own copy of the source.
     from centerpose_tpu_torch import native
