@@ -23,7 +23,11 @@ Stages:
           (`tracking/tracker.py`).
 
 Per-stage wall-clock timing is reported with the reference's stage names
-(tot/pre/net/dec/post/merge/pnp/track — demo.py:54-57).
+(tot/pre/net/dec/post/merge/pnp/track — demo.py:54-57), read from the
+stages' spans (`utils/profiler.py`): `run` is one span a frame, the batched
+path a `submit` and a `finish` span a chunk under one chunk id, and every
+blocking copy sits behind a `wait` span, so the host's time splits into
+working and waiting on the card.
 
 Tracking (`cfg.tracking_task`, the dla_34 CenterPoseTrack model) runs one
 frame per `run` call. The first frame of a video warps on the host, because
@@ -40,6 +44,7 @@ the reference's canvas set (`utils/debugger.py`).
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Dict, List, Mapping, Optional, Union
 
@@ -64,6 +69,7 @@ from centerpose_tpu_torch.tracking.render import (
     render_maps,
     render_previous_heatmaps,
 )
+from centerpose_tpu_torch.utils import profiler
 from centerpose_tpu_torch.utils.checkpoint import load_for_inference
 
 # Post-process std scale factor (src/lib/utils/post_process.py:15).
@@ -122,7 +128,7 @@ def _fetch(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     [B, K, n], so they travel as one concatenated tensor."""
     keys = list(dets)
     widths = [dets[k_].shape[-1] for k_ in keys]
-    flat = torch.cat([dets[k_] for k_ in keys], dim=-1).cpu().numpy()
+    flat = profiler.fetch(torch.cat([dets[k_] for k_ in keys], dim=-1), "dets")
     out, off = {}, 0
     for k_, n in zip(keys, widths):
         out[k_] = flat[..., off:off + n]
@@ -176,6 +182,7 @@ class Detector:
         # >= 2: `run` keeps what `render_debug` draws (demo.py --debug 2).
         self.debug_level = 0
         self._debug_raw: Optional[Dict[str, Any]] = None
+        self._ids = itertools.count()   # frame and chunk ids of the spans
 
     @property
     def cfg(self) -> CenterPoseConfig:
@@ -227,8 +234,8 @@ class Detector:
         outputs, dets = self._forward_decode(images, *pre)
         return images, outputs, dets
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+    def _to_device(self, array: np.ndarray, site: str) -> torch.Tensor:
+        return profiler.upload(array, self.device, site)
 
     # ------------------------------------------------------------------ pre
     def pre_process(
@@ -476,14 +483,15 @@ class Detector:
         return points, cuboids
 
     def _solve(self, points, cuboids, cameras) -> PnPResult:
-        """Padded solve on the device, results fetched to host numpy."""
+        """Padded solve on the device, results fetched to host numpy (one
+        blocking copy each, behind its wait)."""
         res = solve_pnp_batch_padded(
             np.asarray(points, np.float32),
             np.asarray(cuboids, np.float32),
             np.asarray(cameras, np.float32),
             device=self.device,
         )
-        return PnPResult(*[v.cpu().numpy() for v in res])
+        return PnPResult(*[profiler.fetch(v, "pnp.results") for v in res])
 
     def run_pnp_multi(
         self, results_list: List[List[dict]], metas: List[dict]
@@ -493,40 +501,45 @@ class Detector:
         counts = [len(r) for r in results_list]
         if sum(counts) == 0:
             return [[] for _ in results_list]
-        pts, cubs, cams = [], [], []
-        for results, meta in zip(results_list, metas):
-            if not results:
-                continue
-            p, c = self._pnp_assemble(results)
-            pts.append(p)
-            cubs.append(c)
-            cams.append(
-                np.broadcast_to(
-                    np.asarray(meta["camera_matrix"], np.float64),
-                    (len(results), 3, 3),
+        with profiler.span("assemble"):
+            pts, cubs, cams = [], [], []
+            for results, meta in zip(results_list, metas):
+                if not results:
+                    continue
+                p, c = self._pnp_assemble(results)
+                pts.append(p)
+                cubs.append(c)
+                cams.append(
+                    np.broadcast_to(
+                        np.asarray(meta["camera_matrix"], np.float64),
+                        (len(results), 3, 3),
+                    )
                 )
-            )
-        cuboids = np.concatenate(cubs)
-        res = self._solve(np.concatenate(pts), cuboids, np.concatenate(cams))
-        boxes_all, off = [], 0
-        for results, meta, n in zip(results_list, metas, counts):
-            if n == 0:
-                boxes_all.append([])
-                continue
-            res_i = PnPResult(*[v[off:off + n] for v in res])
-            boxes_all.append(
-                self._pnp_consume(results, cuboids[off:off + n], res_i, meta)
-            )
-            off += n
+            cuboids = np.concatenate(cubs)
+            points, cameras = np.concatenate(pts), np.concatenate(cams)
+        res = self._solve(points, cuboids, cameras)
+        with profiler.span("consume"):
+            boxes_all, off = [], 0
+            for results, meta, n in zip(results_list, metas, counts):
+                if n == 0:
+                    boxes_all.append([])
+                    continue
+                res_i = PnPResult(*[v[off:off + n] for v in res])
+                boxes_all.append(
+                    self._pnp_consume(results, cuboids[off:off + n], res_i, meta)
+                )
+                off += n
         return boxes_all
 
     def run_pnp(self, results: List[dict], meta: dict) -> List[tuple]:
         """Batched pnp_shell over all surviving boxes (cuboid_pnp_shell.py:11-93)."""
         if not results:
             return []
-        points, cuboids = self._pnp_assemble(results)
+        with profiler.span("assemble"):
+            points, cuboids = self._pnp_assemble(results)
         res = self._solve(points, cuboids, meta["camera_matrix"])
-        return self._pnp_consume(results, cuboids, res, meta)
+        with profiler.span("consume"):
+            return self._pnp_consume(results, cuboids, res, meta)
 
     def _pnp_consume(self, results, cuboids, res, meta) -> List[tuple]:
         """Host epilogue of pnp_shell: pose fields, visibility rejection."""
@@ -561,100 +574,98 @@ class Detector:
     def run(self, image: np.ndarray, meta_inp: Optional[dict] = None) -> Dict[str, Any]:
         cfg = self.cfg
         times = {"pre": 0.0, "net": 0.0, "post": 0.0}
-        t0 = time.time()
-
-        scales = (1.0,) if cfg.tracking_task else tuple(cfg.test_scales)
-        detections = []
-        meta = None
-        for scale in scales:
-            ts = time.time()
-            # Device-warp path: the standard fix_res crop at scale 1 is
-            # axis-aligned, so the raw uint8 frame goes to the device and the
-            # warp (and for tracking the previous-frame render) runs there,
-            # ahead of the network. Multi-scale / fix_short / keep-res runs
-            # keep the host warp (non-standard windows); so does a tracking
-            # video's FIRST frame (there is no previous frame to pass yet),
-            # and a debug run, which draws the host-warped input.
-            fused = (
-                scale == 1.0 and cfg.fix_res and cfg.fix_short <= 0
-                and self.debug_level < 2
-                and not (cfg.tracking_task and self.pre_images is None)
-            )
-            if fused:
-                images, meta_s = self.pre_process(
-                    image, meta_inp, scale=scale, warp=False
+        with profiler.span("run", frame=next(self._ids)) as whole:
+            scales = (1.0,) if cfg.tracking_task else tuple(cfg.test_scales)
+            detections = []
+            meta = None
+            for scale in scales:
+                # Device-warp path: the standard fix_res crop at scale 1 is
+                # axis-aligned, so the raw uint8 frame goes to the device and the
+                # warp (and for tracking the previous-frame render) runs there,
+                # ahead of the network. Multi-scale / fix_short / keep-res runs
+                # keep the host warp (non-standard windows); so does a tracking
+                # video's FIRST frame (there is no previous frame to pass yet),
+                # and a debug run, which draws the host-warped input.
+                fused = (
+                    scale == 1.0 and cfg.fix_res and cfg.fix_short <= 0
+                    and self.debug_level < 2
+                    and not (cfg.tracking_task and self.pre_images is None)
                 )
-                raw = self._to_device(np.asarray(image))[None]
-                invs = self._to_device(
-                    get_affine_transform(
-                        meta_s["_warp_c"], meta_s["_warp_s"], 0,
-                        (cfg.input_w, cfg.input_h), inv=True,
-                    ).astype(np.float32)
-                )[None]
-            else:
-                images, meta_s = self.pre_process(image, meta_inp, scale=scale)
-            if scale == 1.0 or meta is None:
-                meta = meta_s
-            t1 = time.time()
-            times["pre"] += t1 - ts
+                with profiler.span("pre") as stage:
+                    if fused:
+                        images, meta_s = self.pre_process(
+                            image, meta_inp, scale=scale, warp=False
+                        )
+                        raw = self._to_device(np.asarray(image), "frames")[None]
+                        invs = self._to_device(
+                            get_affine_transform(
+                                meta_s["_warp_c"], meta_s["_warp_s"], 0,
+                                (cfg.input_w, cfg.input_h), inv=True,
+                            ).astype(np.float32),
+                            "transforms",
+                        )[None]
+                    else:
+                        images, meta_s = self.pre_process(image, meta_inp, scale=scale)
+                if scale == 1.0 or meta is None:
+                    meta = meta_s
+                times["pre"] += stage.seconds
 
-            if fused:
-                render_params = None
-                if cfg.tracking_task:
-                    tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
-                    render_params = render_inputs(tracks, meta_s, cfg)
-                images_t, _, dets = self._forward_decode_raw(raw, invs, render_params)
-            else:
-                images_t = self._to_device(images)
-                extra = ()
-                if cfg.tracking_task:
-                    extra = self._tracking_inputs(images_t, meta_s)
-                outputs, dets = self._forward_decode(images_t, *extra)
-            dets = _fetch(dets)  # one transfer; it also waits for the device
-            if self.debug_level >= 2 and scale == 1.0:
-                self._debug_raw = self._debug_maps(images, outputs, dets, extra)
-            t2 = time.time()
-            times["net"] += t2 - t1
+                with profiler.span("net") as stage:
+                    if fused:
+                        render_params = None
+                        if cfg.tracking_task:
+                            tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
+                            render_params = render_inputs(tracks, meta_s, cfg)
+                        images_t, _, dets = self._forward_decode_raw(raw, invs, render_params)
+                    else:
+                        images_t = self._to_device(images, "frames")
+                        extra = ()
+                        if cfg.tracking_task:
+                            extra = self._tracking_inputs(images_t, meta_s)
+                        outputs, dets = self._forward_decode(images_t, *extra)
+                    dets = _fetch(dets)  # one transfer, behind a wait for the device
+                    if self.debug_level >= 2 and scale == 1.0:
+                        self._debug_raw = self._debug_maps(images, outputs, dets, extra)
+                times["net"] += stage.seconds
 
-            scale_dets = self.post_process(dets, meta_s,
-                                           min_score=cfg.vis_thresh)
-            if scale != 1.0:
-                # Coordinates back to the unscaled image (object_pose.py:174-179).
-                for det in scale_dets:
-                    for key in (
-                        "bbox", "kps", "kps_displacement_std", "tracking",
-                        "tracking_hp", "kps_displacement_mean", "kps_heatmap_mean",
-                    ):
-                        if key in det:
-                            det[key] = np.asarray(det[key], np.float64) / scale
-                    det["ct"] = [
-                        (det["bbox"][0] + det["bbox"][2]) / 2,
-                        (det["bbox"][1] + det["bbox"][3]) / 2,
-                    ]
-            detections.extend(scale_dets)
-            times["post"] += time.time() - t2
-        times["dec"] = 0.0  # counted in `net`: no host round-trip between them
-        t3 = time.time()
+                with profiler.span("post") as stage:
+                    scale_dets = self.post_process(dets, meta_s,
+                                                   min_score=cfg.vis_thresh)
+                    if scale != 1.0:
+                        # Coordinates back to the unscaled image (object_pose.py:174-179).
+                        for det in scale_dets:
+                            for key in (
+                                "bbox", "kps", "kps_displacement_std", "tracking",
+                                "tracking_hp", "kps_displacement_mean", "kps_heatmap_mean",
+                            ):
+                                if key in det:
+                                    det[key] = np.asarray(det[key], np.float64) / scale
+                            det["ct"] = [
+                                (det["bbox"][0] + det["bbox"][2]) / 2,
+                                (det["bbox"][1] + det["bbox"][3]) / 2,
+                            ]
+                    detections.extend(scale_dets)
+                times["post"] += stage.seconds
+            times["dec"] = 0.0  # counted in `net`: no host round-trip between them
 
-        results = self.merge_outputs(detections)
-        t4 = time.time()
-        times["merge"] = t4 - t3
+            with profiler.span("merge") as stage:
+                results = self.merge_outputs(detections)
+            times["merge"] = stage.seconds
 
-        if cfg.tracking_task or cfg.refined_kalman:
-            for det in results:
-                self.gaussian_fusion(det)
+            with profiler.span("pnp") as stage:
+                if cfg.tracking_task or cfg.refined_kalman:
+                    for det in results:
+                        self.gaussian_fusion(det)
+                boxes = self.run_pnp(results, meta)
+            times["pnp"] = stage.seconds
 
-        boxes = self.run_pnp(results, meta)
-        t5 = time.time()
-        times["pnp"] = t5 - t4
-
-        if self.tracker is not None:
-            results, boxes = self.tracker.step(results, boxes, meta)
-            if cfg.tracking_task:
-                self.pre_images = images_t
-        t6 = time.time()
-        times["track"] = t6 - t5
-        times["tot"] = t6 - t0
+            with profiler.span("track") as stage:
+                if self.tracker is not None:
+                    results, boxes = self.tracker.step(results, boxes, meta)
+                    if cfg.tracking_task:
+                        self.pre_images = images_t
+            times["track"] = stage.seconds
+        times["tot"] = whole.seconds
 
         return {
             "results": results,
@@ -777,96 +788,98 @@ class Detector:
         return dbg
 
     def _batch_submit(self, images: List[np.ndarray],
-                      metas: Optional[List[dict]] = None,
-                      timing: bool = False) -> dict:
+                      metas: Optional[List[dict]] = None) -> dict:
         """Device half of the batched path: build per-image metas/transforms,
         enqueue transfer → warp → net → decode (CUDA launches are
         asynchronous: this returns before the device finishes). Host
         post-processing happens in `_batch_finish`; keeping the two apart lets
         `run_batch_stream` overlap chunk N's host work with chunk N+1's device
-        work."""
+        work. Spans: `submit` (one chunk id, which `_batch_finish` keeps),
+        `pre`, the uploads behind their waits, `net` (the launches); device
+        phase `model` from before the frames' upload to after decode."""
         cfg = self.cfg
         if cfg.tracking_task:
             raise ValueError("batched mode is for the image model; track a video with run()")
         metas = metas or [None] * len(images)
-        t0 = time.time()
-
-        pre_meta = []
-        inv_transforms = []
-        for img, m in zip(images, metas):
-            height, width = img.shape[:2]
-            c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
-            s = max(height, width) * 1.0
-            meta = {
-                "c": c, "s": s, "height": height, "width": width,
-                "out_height": cfg.input_h // cfg.down_ratio,
-                "out_width": cfg.input_w // cfg.down_ratio,
-                "camera_matrix": DEFAULT_CAMERA,
-            }
-            if m:
-                meta.update(m)
-            pre_meta.append(meta)
-            inv_transforms.append(
-                get_affine_transform(c, s, 0, (cfg.input_w, cfg.input_h), inv=True)
-            )
-        fused = (
-            len({im.shape for im in images}) == 1
-            and axis_aligned(inv_transforms)
-        )
-        if fused:
-            # uint8 transfer → separable warp → net → decode.
-            raw = self._to_device(np.stack(images))
-            invs = self._to_device(np.stack(inv_transforms).astype(np.float32))
-            t1 = time.time()
-            _, _, dets = self._forward_decode_raw(raw, invs)
-        else:
-            batch = preprocess_on_device(
-                images, inv_transforms, cfg.input_h, cfg.input_w, self.device
-            )
-            if timing and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # `pre` ends with the warp
-            t1 = time.time()
-            _, dets = self._forward_decode(batch)
-        return {"dets": dets, "pre_meta": pre_meta, "t0": t0, "t1": t1}
+        with profiler.span("submit", chunk=next(self._ids)) as submit:
+            with profiler.span("pre"):
+                pre_meta = []
+                inv_transforms = []
+                for img, m in zip(images, metas):
+                    height, width = img.shape[:2]
+                    c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
+                    s = max(height, width) * 1.0
+                    meta = {
+                        "c": c, "s": s, "height": height, "width": width,
+                        "out_height": cfg.input_h // cfg.down_ratio,
+                        "out_width": cfg.input_w // cfg.down_ratio,
+                        "camera_matrix": DEFAULT_CAMERA,
+                    }
+                    if m:
+                        meta.update(m)
+                    pre_meta.append(meta)
+                    inv_transforms.append(
+                        get_affine_transform(c, s, 0, (cfg.input_w, cfg.input_h), inv=True)
+                    )
+                fused = (
+                    len({im.shape for im in images}) == 1
+                    and axis_aligned(inv_transforms)
+                )
+                if fused:
+                    frames = np.stack(images)
+                    transforms = np.stack(inv_transforms).astype(np.float32)
+            model = profiler.device_phases("model", ("model",), self.device)
+            model.mark()
+            if fused:
+                # uint8 transfer → separable warp → net → decode.
+                raw = self._to_device(frames, "frames")
+                invs = self._to_device(transforms, "transforms")
+                with profiler.span("net") as net:
+                    _, _, dets = self._forward_decode_raw(raw, invs)
+            else:
+                batch = preprocess_on_device(
+                    images, inv_transforms, cfg.input_h, cfg.input_w, self.device
+                )
+                with profiler.span("net") as net:
+                    _, dets = self._forward_decode(batch)
+            model.mark()
+        return {"dets": dets, "pre_meta": pre_meta, "submit": submit, "net": net}
 
     def _batch_finish(self, handle: dict, timing: bool = False
                       ) -> List[Dict[str, Any]]:
-        """Host half: fetch decode outputs, per-image post/merge, one padded
-        PnP solve for the whole batch."""
+        """Host half: fetch decode outputs, per-image post then merge, one
+        padded PnP solve for the whole batch, in span `finish` under the
+        chunk's id (`fetch`, `post`, `merge`, `pnp`)."""
         cfg = self.cfg
         pre_meta = handle["pre_meta"]
-        t0, t1 = handle["t0"], handle["t1"]
-        dets = _fetch(handle["dets"])  # one transfer for all decode outputs
-        t2 = time.time()
+        submit, net = handle["submit"], handle["net"]
+        with profiler.span("finish", **submit.ids):
+            dets = _fetch(handle["dets"])  # one transfer for all decode outputs
+            fetched = time.perf_counter_ns()
+            with profiler.span("post") as post:
+                # Sub-threshold dets never survive merge_outputs — drop them
+                # before the per-det dict build.
+                detections = [
+                    self.post_process({k_: v[i : i + 1] for k_, v in dets.items()}, meta,
+                                      min_score=cfg.vis_thresh)
+                    for i, meta in enumerate(pre_meta)
+                ]
+            with profiler.span("merge") as merge:
+                results_list = [self.merge_outputs(d) for d in detections]
+            # ONE padded PnP solve for the whole batch (per-box intrinsics).
+            with profiler.span("pnp") as pnp:
+                boxes_list = self.run_pnp_multi(results_list, pre_meta)
 
-        times = {"pre": t1 - t0, "net": t2 - t1, "post": 0.0, "merge": 0.0,
-                 "pnp": 0.0}
-        results_list = []
-        for i, meta in enumerate(pre_meta):
-            ts = time.time()
-            dets_i = {k_: v[i : i + 1] for k_, v in dets.items()}
-            # Sub-threshold dets never survive merge_outputs — drop them
-            # before the per-det dict build.
-            detections = self.post_process(dets_i, meta,
-                                           min_score=cfg.vis_thresh)
-            tp = time.time()
-            results_list.append(self.merge_outputs(detections))
-            tm = time.time()
-            times["post"] += tp - ts
-            times["merge"] += tm - tp
-
-        # ONE padded PnP solve for the whole batch (per-box intrinsics).
-        tq0 = time.time()
-        boxes_list = self.run_pnp_multi(results_list, pre_meta)
-        times["pnp"] = time.time() - tq0
-
-        outs = []
-        for results, boxes, meta in zip(results_list, boxes_list, pre_meta):
-            out = {"results": results, "boxes": boxes, "meta": meta}
-            if timing:
-                out["times"] = times  # shared batch-level dict
-            outs.append(out)
-        times["tot"] = time.time() - t0
+            times = {"pre": (net.start_ns - submit.start_ns) / 1e9,
+                     "net": (fetched - net.start_ns) / 1e9,
+                     "post": post.seconds, "merge": merge.seconds, "pnp": pnp.seconds}
+            outs = []
+            for results, boxes, meta in zip(results_list, boxes_list, pre_meta):
+                out = {"results": results, "boxes": boxes, "meta": meta}
+                if timing:
+                    out["times"] = times  # shared batch-level dict
+                outs.append(out)
+            times["tot"] = (time.perf_counter_ns() - submit.start_ns) / 1e9
         return outs
 
     def run_batch(
@@ -879,7 +892,7 @@ class Detector:
         timing=True adds a shared per-stage wall-clock dict under "times" in
         each output (pre/net/post/merge/pnp/tot for the WHOLE batch)."""
         return self._batch_finish(
-            self._batch_submit(images, metas, timing=timing), timing=timing
+            self._batch_submit(images, metas), timing=timing
         )
 
     def run_batch_stream(self, chunks, timing: bool = False):
@@ -889,7 +902,7 @@ class Detector:
         the same per-image output lists run_batch returns, in order."""
         pending = None
         for images, metas in chunks:
-            handle = self._batch_submit(images, metas, timing=timing)
+            handle = self._batch_submit(images, metas)
             if pending is not None:
                 yield self._batch_finish(pending, timing=timing)
             pending = handle

@@ -31,6 +31,8 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from centerpose_tpu_torch.utils import profiler
+
 _DLT_MIN_POINTS = 6  # below this the EPnP initializer takes over
 _LM_ITERS = 20
 
@@ -66,14 +68,16 @@ def _guard(m: torch.Tensor):
 
 def _svd(m: torch.Tensor):
     m, bad = _guard(m)
-    u, s, vt = torch.linalg.svd(m)
+    with profiler.synced("pnp.svd"):       # its error check synchronises
+        u, s, vt = torch.linalg.svd(m)
     nan = torch.full_like(u, float("nan"))
     return torch.where(bad, nan, u), s, torch.where(bad, nan, vt)
 
 
 def _eigh(m: torch.Tensor):
     m, bad = _guard(m)
-    vals, vecs = torch.linalg.eigh(m)
+    with profiler.synced("pnp.eigh"):      # its error check synchronises
+        vals, vecs = torch.linalg.eigh(m)
     return (
         torch.where(bad[..., 0], torch.full_like(vals, float("nan")), vals),
         torch.where(bad, torch.full_like(vecs, float("nan")), vecs),
@@ -208,8 +212,8 @@ def _epnp_init(points3d, points2d_norm, weights):
     """
     mb, n = points3d.shape[0], points3d.shape[1]
     dev, dt = points3d.device, points3d.dtype
-    pair_i = torch.tensor(_PAIR_I, device=dev)
-    pair_j = torch.tensor(_PAIR_J, device=dev)
+    pair_i = profiler.upload(np.array(_PAIR_I), dev, "pnp.pairs")
+    pair_j = profiler.upload(np.array(_PAIR_J), dev, "pnp.pairs")
 
     c0 = points3d.mean(dim=1)                              # [M, 3]
     d = points3d - c0[:, None]
@@ -241,7 +245,8 @@ def _epnp_init(points3d, points2d_norm, weights):
 
     def basis(i):
         e = torch.zeros(4, dtype=dt, device=dev)
-        e[i] = 1.0
+        with profiler.synced("pnp.basis"):      # a host scalar written on the device
+            e[i] = 1.0
         return e
 
     # --- β seeds (OpenCV find_betas_approx_{1,2,3} analogue) ---
@@ -377,10 +382,14 @@ def _lm_refine(points3d, points2d, weights, camera, r0, t0):
 _GL_SWAP = ((0.0, 1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, -1.0))
 
 
-def _as_tensor(a, device) -> torch.Tensor:
+def _as_tensor(a, device, site: str) -> torch.Tensor:
+    """`a` as float32 on `device`; a host array or a CPU tensor bound for
+    the card by a blocking copy behind `profiler.wait(site)`."""
     if isinstance(a, torch.Tensor):
+        if a.device.type == "cpu" and device.type == "cuda":
+            return profiler.upload(a.to(torch.float32), device, site)
         return a.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    return profiler.upload(np.ascontiguousarray(a, dtype=np.float32), device, site)
 
 
 def solve_pnp_batch(
@@ -395,9 +404,16 @@ def solve_pnp_batch(
     [M, 8, 3] corner coordinates (binary-counting order), camera [3, 3] shared
     or [M, 3, 3] per object. Arrays or tensors; the solve runs on `device`."""
     device = torch.device(device)
-    points2d = _as_tensor(points2d, device)
-    cuboid3d = _as_tensor(cuboid3d, device)
-    camera = _as_tensor(camera, device)
+    points2d = _as_tensor(points2d, device, "pnp.points")
+    cuboid3d = _as_tensor(cuboid3d, device, "pnp.cuboids")
+    camera = _as_tensor(camera, device, "pnp.camera")
+    with profiler.span("solve"):         # the launches, and the waits among them
+        return _solve_on_device(points2d, cuboid3d, camera, min_required_points, device)
+
+
+def _solve_on_device(points2d, cuboid3d, camera, min_required_points: int,
+                     device: torch.device) -> PnPResult:
+    """`solve_pnp_batch` on its inputs' float32 tensors on `device`."""
     mb, n = points2d.shape[0], points2d.shape[1]
     if camera.dim() == 2:
         camera = camera[None].expand(mb, 3, 3)
@@ -433,7 +449,7 @@ def solve_pnp_batch(
     z_ok = t[:, 2] > 0  # cuboid_pnp_solver.py:207-220 z<0 => fail
     valid = (n_valid >= min_required_points) & z_ok
 
-    swap = torch.tensor(_GL_SWAP, dtype=torch.float32, device=device)
+    swap = profiler.upload(np.array(_GL_SWAP, np.float32), device, "pnp.gl_swap")
     r_gl = swap @ r
     t_gl = t @ swap.T
 
@@ -461,8 +477,9 @@ def solve_pnp_single(
     points2d [N, 2], cuboid3d [8, 3], camera [3, 3]."""
     device = torch.device(device)
     res = solve_pnp_batch(
-        _as_tensor(points2d, device)[None], _as_tensor(cuboid3d, device)[None],
-        _as_tensor(camera, device), min_required_points, device,
+        _as_tensor(points2d, device, "pnp.points")[None],
+        _as_tensor(cuboid3d, device, "pnp.cuboids")[None],
+        _as_tensor(camera, device, "pnp.camera"), min_required_points, device,
     )
     return PnPResult(*[v[0] for v in res])
 

@@ -18,11 +18,12 @@ import numpy as np
 import torch
 
 from centerpose_tpu_torch.config import DATA_MEAN, DATA_STD
+from centerpose_tpu_torch.utils import profiler
 
 
 def _normalize(out: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(DATA_MEAN, dtype=torch.float32, device=out.device)
-    std = torch.tensor(DATA_STD, dtype=torch.float32, device=out.device)
+    mean = profiler.upload(np.asarray(DATA_MEAN, np.float32), out.device, "warp.mean")
+    std = profiler.upload(np.asarray(DATA_STD, np.float32), out.device, "warp.std")
     return (out / 255.0 - mean) / std
 
 
@@ -169,19 +170,19 @@ def preprocess_on_device(
     rotated ones the gather warp."""
     device = torch.device(device)
 
-    def to_dev(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+    def to_dev(a, site):
+        return profiler.upload(a, device, site)
 
     shapes = {im.shape for im in images}
     if len(shapes) == 1:
-        batch = to_dev(np.stack(images))
-        invs = to_dev(np.stack(inv_transforms).astype(np.float32))
+        batch = to_dev(np.stack(images), "frames")
+        invs = to_dev(np.stack(inv_transforms).astype(np.float32), "transforms")
         if axis_aligned(inv_transforms):
             return warp_axis_aligned_batch(batch, invs, out_h, out_w)
         return _warp_affine_batch(batch, invs, out_h, out_w, True)
     return torch.stack(
         [
-            warp_affine_device(to_dev(im), to_dev(np.asarray(t, np.float32)), out_h, out_w)
+            warp_affine_device(to_dev(im, "frames"), to_dev(np.asarray(t, np.float32), "transforms"), out_h, out_w)
             for im, t in zip(images, inv_transforms)
         ]
     )

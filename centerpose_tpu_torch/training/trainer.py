@@ -59,6 +59,9 @@ from centerpose_tpu_torch.config import DATA_MEAN, DATA_STD, CenterPoseConfig
 from centerpose_tpu_torch.models.layers import BatchNorm2d
 from centerpose_tpu_torch.parallel.mesh import World, all_reduce_grads
 from centerpose_tpu_torch.training.losses import STAT_KEYS, CenterPoseLossConfig, centerpose_loss
+from centerpose_tpu_torch.utils import profiler
+
+PHASES = ("forward", "loss", "backward", "optimizer")   # the step's spans and device phases
 
 
 def decode_wire(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -249,6 +252,11 @@ def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam,
     `stats` are detached 0-d tensors on the model's device (per-head losses,
     `loss`); nothing synchronises with the host. The gradients of the step
     stay in the parameters' `.grad` (after clipping) until the next step.
+    Each step is a span `step` (its id the update count before it) over the
+    spans of `PHASES`, and on a CUDA model the device phase `step`: five
+    CUDA events on the current stream at the phases' boundaries
+    (`utils/profiler.py`). `optimizer` covers the zero-filled gradients,
+    the all-reduce of a world, the clip and Adam.
 
     With a `world` (`parallel/mesh.py`; a live process group, of one rank
     or more) `batch` is this rank's rows of the global batch (`None` for
@@ -280,20 +288,30 @@ def make_train_step(cfg: CenterPoseConfig, model: nn.Module, tx: ClippedAdam,
         model.train()
         for p in tx.params:
             p.grad = None
-        with _compute(cfg, device):
-            outputs = _forward(cfg, model, batch)
-        loss, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "train")
-        (loss * weight if parallel else loss).backward()
-        for p in tx.params:
-            # A parameter the forward never reads (the reference keeps an
-            # unused `project` conv in its two-level trees) has a zero
-            # gradient, as in the JAX package; Adam then leaves it alone.
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if parallel:
-            all_reduce_grads(tx.params)
-            stats = _world_mean(stats, rows, device)
-        tx.step()
+        with profiler.span("step", step=state.step):
+            phases = profiler.device_phases("step", PHASES, device)
+            phases.mark()
+            with profiler.span("forward"), _compute(cfg, device):
+                outputs = _forward(cfg, model, batch)
+            phases.mark()
+            with profiler.span("loss"):
+                loss, stats, _ = centerpose_loss(outputs, batch, loss_cfg, "train")
+            phases.mark()
+            with profiler.span("backward"):
+                (loss * weight if parallel else loss).backward()
+            phases.mark()
+            with profiler.span("optimizer"):
+                for p in tx.params:
+                    # A parameter the forward never reads (the reference keeps an
+                    # unused `project` conv in its two-level trees) has a zero
+                    # gradient, as in the JAX package; Adam then leaves it alone.
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if parallel:
+                    all_reduce_grads(tx.params)
+                    stats = _world_mean(stats, rows, device)
+                tx.step()
+            phases.mark()
         state.step += 1
         return state, {k: v.detach() for k, v in stats.items()}
 

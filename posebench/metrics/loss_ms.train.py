@@ -1,0 +1,9 @@
+"""`loss_ms.train`: median device ms a train step of the loss: the
+`loss` phase of the step's device phases (CUDA events at the step's
+boundaries), over the steps run outside the profiler (`posebench/spans.py`)."""
+
+from posebench import spans
+
+
+def read(counters, trace):
+    return spans.median(spans.phase_ms(spans.snapshot(), "step", "loss"))

@@ -6,7 +6,7 @@ the CPU.
   them: forward and the input's gradient within 1e-5.
 * `geometry/collision.py` against the JAX functions on 200 seeded segments
   and boxes: the same answers.
-* `utils/profiler.py`: `StageTimer` and `trace` on the CPU.
+* `utils/profiler.py`: `trace` and the spans inside it on the CPU.
 * `scripts/group_report.py` on shard stats the port's `Evaluator` wrote:
   the JAX script's report of the same files; `scripts/batch_eval.py` and
   `scripts/track_ablation.py` (with `subprocess.run` patched): the JAX
@@ -34,7 +34,8 @@ from centerpose_tpu_torch.evaluation import evaluator
 from centerpose_tpu_torch.geometry import collision
 from centerpose_tpu_torch.ops.psroi import dcn_v2_psroi_pooling
 from centerpose_tpu_torch.scripts import batch_eval, group_report, track_ablation
-from centerpose_tpu_torch.utils.profiler import StageTimer, trace
+from centerpose_tpu_torch.utils import profiler
+from centerpose_tpu_torch.utils.profiler import trace
 
 from test_torch_port_evaluation import _run, _scenes
 
@@ -107,19 +108,24 @@ def test_collision_matches_jax():
 
 # ---------------------------------------------------------------- profiler
 def test_stage_timer_and_trace(tmp_path):
-    timer = StageTimer()
-    x = torch.ones(64, 64)
-    timer.stage("pre", sync=x)
-    timer.stage("net", sync={"a": x @ x, "b": [1]})
-    timer.stage("pre")
-    assert list(timer.times) == ["pre", "net"] and timer.total() == pytest.approx(sum(timer.times.values()))
-    assert timer.format().startswith("pre ") and "|net " in timer.format()
+    """`trace` writes the Chrome trace of its block, with the operators and
+    the spans opened inside it (`centerpose.<name>`); the same spans
+    outside it are recorded unflagged and reach no trace."""
+    profiler.reset()
+    with profiler.span("net", chunk=4):
+        torch.relu(torch.ones(4, 4))
     with trace(str(tmp_path / "tr")) as prof:
-        torch.relu(torch.randn(32, 32) @ torch.randn(32, 32))
+        with profiler.span("net", chunk=5):
+            torch.relu(torch.randn(32, 32) @ torch.randn(32, 32))
     names = {e.key for e in prof.key_averages()}
-    assert "aten::relu" in names and "aten::mm" in names
+    assert "aten::relu" in names and "aten::mm" in names and "centerpose.net" in names
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "aten::relu" for e in events)
+    ranges = [e for e in events if e.get("name") == "centerpose.net"]
+    assert len(ranges) == 1 and ranges[0]["dur"] > 0
+    records = profiler.snapshot()["spans"]["net"]["records"]
+    assert [(r["ids"]["chunk"], r["profiled"]) for r in records] == [(4, False), (5, True)]
+    profiler.reset()
 
 
 # ----------------------------------------------------------------- scripts
