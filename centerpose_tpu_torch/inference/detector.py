@@ -17,7 +17,8 @@ Stages:
   `post`  host: map coords back to image space (tiny, K×2 points).
   `merge` host: threshold + soft-NMS over <K boxes; for tracking, the
           inverse-variance fusion of the two keypoint estimates.
-  `pnp`   device: batched DLT/EPnP+LM PnP over all surviving boxes at once.
+  `pnp`   device: batched DLT/EPnP+LM PnP over all surviving boxes at once
+          (on the card one upload, one launch of `csrc/pnp.cu`, one fetch).
   `track` host + device: association, Kalman filter and scale pool on the
           host, then one batched re-PnP of every track on the device
           (`tracking/tracker.py`).
@@ -58,7 +59,7 @@ from centerpose_tpu_torch.inference.nms import soft_nms
 from centerpose_tpu_torch.models.convert import load_reference_state_dict
 from centerpose_tpu_torch.models.factory import create_model
 from centerpose_tpu_torch.ops.decode import object_pose_decode
-from centerpose_tpu_torch.ops.pnp import PnPResult, solve_pnp_batch_padded
+from centerpose_tpu_torch.ops.pnp import PnPResult, solve_pnp_packed, unpack_result
 from centerpose_tpu_torch.ops.resample import (
     axis_aligned,
     preprocess_on_device,
@@ -483,15 +484,16 @@ class Detector:
         return points, cuboids
 
     def _solve(self, points, cuboids, cameras) -> PnPResult:
-        """Padded solve on the device, results fetched to host numpy (one
-        blocking copy each, behind its wait)."""
-        res = solve_pnp_batch_padded(
+        """One solve of every box on the device (on the card one upload and
+        one kernel launch), its packed results fetched to host numpy by one
+        blocking copy behind its wait."""
+        packed = solve_pnp_packed(
             np.asarray(points, np.float32),
             np.asarray(cuboids, np.float32),
             np.asarray(cameras, np.float32),
             device=self.device,
         )
-        return PnPResult(*[profiler.fetch(v, "pnp.results") for v in res])
+        return unpack_result(profiler.fetch(packed, "pnp.results"))
 
     def run_pnp_multi(
         self, results_list: List[List[dict]], metas: List[dict]

@@ -17,20 +17,43 @@ Parity target: `CuboidPNPSolver.solve_pnp` (src/lib/utils/pnp/cuboid_pnp_solver.
   * Returns both the OpenCV-frame pose and the OpenGL-converted pose (x↔y
     swap, z negated — cuboid_pnp_solver.py:179-196).
 
-Every function carries the batch of M objects as the leading dimension (where
-the JAX package maps a single-object function over the batch), is branchless
-and stays in float32 on the device of its inputs: one detection count, one
-program. Eigenvector signs and order differ between linear-algebra libraries,
-so only the final pose, not an intermediate, is comparable across packages.
+Every function of the plain version carries the batch of M objects as the
+leading dimension (where the JAX package maps a single-object function over the
+batch), is branchless and stays in float32 on the device of its inputs: one
+detection count, one program. Eigenvector signs and order differ between
+linear-algebra libraries, so only the final pose, not an intermediate, is
+comparable across packages.
+
+The solves dispatch on the device they are given, and on nothing else, in one
+place, `solve_pnp_packed`; `solve_pnp_batch` and `solve_pnp_single` read its
+rows:
+
+  * CUDA: one hand-written kernel, `csrc/pnp.cu`, computes the whole solve in
+    one launch (one warp an object; it replaces no TPU kernel: on the card the
+    plain version is bound by its thousands of tiny launches and the host
+    waits among them, not by arithmetic). Points, cuboids and cameras go up
+    in one packed buffer (`pack_inputs`, pinned for the copy) behind one
+    wait, the kernel writes one packed [M, RESULT_WIDTH] row an object on
+    the current stream without synchronising, and `PnPResult`'s fields are
+    views of it (`unpack_result`). A failed build or a refused launch
+    raises; there is no fallback to the plain version.
+  * CPU (and any other device): the plain version, `solve_pnp_plain`, which
+    the card runs only where `chip_smoke.py` holds the kernel against it.
+
+`solve_pnp_packed.launches` and `solve_pnp_packed.rows` count the kernel's
+launches and the objects they solved (`utils/profiler.py::snapshot` reports
+them as `pnp.launches`, `pnp.rows`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Union
 
 import numpy as np
 import torch
 
+from centerpose_tpu_torch import _build
 from centerpose_tpu_torch.utils import profiler
 
 _DLT_MIN_POINTS = 6  # below this the EPnP initializer takes over
@@ -392,6 +415,23 @@ def _as_tensor(a, device, site: str) -> torch.Tensor:
     return profiler.upload(np.ascontiguousarray(a, dtype=np.float32), device, site)
 
 
+def solve_pnp_plain(
+    points2d,
+    cuboid3d,
+    camera,
+    min_required_points: int = 4,
+    device: Union[str, torch.device] = "cuda",
+) -> PnPResult:
+    """The plain version of `solve_pnp_batch`: eager tensor ops on `device`,
+    inputs uploaded one by one."""
+    device = torch.device(device)
+    points2d = _as_tensor(points2d, device, "pnp.points")
+    cuboid3d = _as_tensor(cuboid3d, device, "pnp.cuboids")
+    camera = _as_tensor(camera, device, "pnp.camera")
+    with profiler.span("solve"):         # the launches, and the waits among them
+        return _solve_on_device(points2d, cuboid3d, camera, min_required_points, device)
+
+
 def solve_pnp_batch(
     points2d,
     cuboid3d,
@@ -402,13 +442,9 @@ def solve_pnp_batch(
     """PnP over M objects at once: points2d [M, N, 2] (entries with any
     coordinate < -5000 are invalid, cuboid_pnp_solver.py:145), cuboid3d
     [M, 8, 3] corner coordinates (binary-counting order), camera [3, 3] shared
-    or [M, 3, 3] per object. Arrays or tensors; the solve runs on `device`."""
-    device = torch.device(device)
-    points2d = _as_tensor(points2d, device, "pnp.points")
-    cuboid3d = _as_tensor(cuboid3d, device, "pnp.cuboids")
-    camera = _as_tensor(camera, device, "pnp.camera")
-    with profiler.span("solve"):         # the launches, and the waits among them
-        return _solve_on_device(points2d, cuboid3d, camera, min_required_points, device)
+    or [M, 3, 3] per object. Arrays or tensors; the solve runs on `device`
+    (the fields are views of `solve_pnp_packed`'s rows)."""
+    return unpack_result(solve_pnp_packed(points2d, cuboid3d, camera, min_required_points, device))
 
 
 def _solve_on_device(points2d, cuboid3d, camera, min_required_points: int,
@@ -475,65 +511,129 @@ def solve_pnp_single(
 ) -> PnPResult:
     """One object's pose from its (possibly invalid) 2D cuboid points:
     points2d [N, 2], cuboid3d [8, 3], camera [3, 3]."""
-    device = torch.device(device)
-    res = solve_pnp_batch(
-        _as_tensor(points2d, device, "pnp.points")[None],
-        _as_tensor(cuboid3d, device, "pnp.cuboids")[None],
-        _as_tensor(camera, device, "pnp.camera"), min_required_points, device,
-    )
+    res = solve_pnp_batch(_lead(points2d), _lead(cuboid3d), camera, min_required_points, device)
     return PnPResult(*[v[0] for v in res])
 
 
-def solve_pnp_batch_padded(
+def _lead(a):
+    """`a` with a leading axis of one."""
+    return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
+
+
+# ------------------------------------------------------------- the kernel
+# Per object: the points (x, y), then INPUT_TAIL floats: the cuboid's 8 corners
+# and fx, fy, cx, cy. The output row: RESULT_FIELDS in order.
+INPUT_TAIL = 28
+RESULT_FIELDS = (("valid", ()), ("rotation", (3, 3)), ("translation", (3,)), ("quaternion", (4,)),
+                 ("rotation_gl", (3, 3)), ("translation_gl", (3,)), ("quaternion_gl", (4,)),
+                 ("projected", (8, 2)), ("reproj_error", ()))
+RESULT_WIDTH = sum(int(np.prod(shape)) for _, shape in RESULT_FIELDS)
+MAX_POINTS = 1024
+
+
+def pack_inputs(points2d, cuboid3d, camera) -> torch.Tensor:
+    """[M, 2N + INPUT_TAIL] float32 rows of the kernel's input: points2d
+    [M, N, 2], cuboid3d [M, 8, 3], camera [3, 3] or [M, 3, 3] (its fx, fy,
+    cx, cy). Arrays go to a CPU tensor, tensors stay on their device."""
+    p, c, k = (_f32(a) for a in (points2d, cuboid3d, camera))
+    if p.dim() != 3 or p.shape[2] != 2:
+        raise ValueError(f"pnp: points2d {tuple(p.shape)}, expected [M, N, 2]")
+    m, n = p.shape[0], p.shape[1]
+    if n < 8 or n % 8 or n > MAX_POINTS:
+        raise ValueError(f"pnp: {n} points an object, expected a multiple of 8 up to {MAX_POINTS}")
+    if tuple(c.shape) != (m, 8, 3):
+        raise ValueError(f"pnp: cuboid3d {tuple(c.shape)}, expected {(m, 8, 3)}")
+    if k.shape[-2:] != (3, 3) or k.dim() not in (2, 3) or (k.dim() == 3 and k.shape[0] != m):
+        raise ValueError(f"pnp: camera {tuple(k.shape)}, expected [3, 3] or {(m, 3, 3)}")
+    k = k.expand(m, 3, 3)
+    buf = torch.empty((m, 2 * n + INPUT_TAIL), dtype=torch.float32, device=p.device)
+    buf[:, :2 * n] = p.reshape(m, 2 * n)
+    buf[:, 2 * n:2 * n + 24] = c.reshape(m, 24)
+    buf[:, 2 * n + 24:] = k[:, (0, 1, 0, 1), (0, 1, 2, 2)]
+    return buf
+
+
+def _f32(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def pack_result(res: PnPResult) -> torch.Tensor:
+    """The [M, RESULT_WIDTH] rows the kernel writes, from a `PnPResult`."""
+    m = res.valid.shape[0]
+    return torch.cat([getattr(res, name).to(torch.float32).reshape(m, -1) for name, _ in RESULT_FIELDS], dim=1)
+
+
+def unpack_result(packed) -> PnPResult:
+    """`PnPResult` of [M, RESULT_WIDTH] rows (a tensor or a host array):
+    views of them, and `valid` as bool."""
+    m, fields, col = packed.shape[0], {}, 0
+    for name, shape in RESULT_FIELDS:
+        width = int(np.prod(shape))
+        fields[name] = packed[:, col:col + width].reshape((m,) + shape)
+        col += width
+    fields["valid"] = fields["valid"] != 0
+    return PnPResult(**fields)
+
+
+def _library() -> ctypes.CDLL:
+    return _declare(_build.load("pnp"))
+
+
+def _declare(lib):
+    """Declares the C signature of the kernel's launch entry (c_void_p for
+    every pointer and the stream: ctypes would otherwise pass a Python int as
+    a 32-bit int and cut the address)."""
+    fn = lib.pnp_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(lib, inputs: torch.Tensor, out: torch.Tensor, n: int, min_required_points: int,
+            stream: int) -> None:
+    """One launch of the kernel over `inputs`' rows into `out`, on `stream`;
+    raises where it is refused."""
+    m = inputs.shape[0]
+    err = lib.pnp_launch(inputs.data_ptr(), out.data_ptr(), m, n, int(min_required_points), stream)
+    if err != 0:
+        raise RuntimeError(f"pnp: kernel launch failed with CUDA error {err} for M={m}, N={n}")
+    solve_pnp_packed.launches += 1
+    solve_pnp_packed.rows += m
+
+
+def solve_pnp_packed(
     points2d,
     cuboid3d,
     camera,
     min_required_points: int = 4,
     device: Union[str, torch.device] = "cuda",
-) -> PnPResult:
-    """solve_pnp_batch with the object count M padded to the next power of
-    two, as the JAX package's function of this name does, so that serving
-    runs a handful of batch shapes instead of one per detection count. Padded
-    rows carry the -10000 invalid sentinel (n_valid=0 ⇒ valid=False) and a
-    unit cuboid to keep the branchless solver well-posed; results are sliced
-    back to M.
+) -> torch.Tensor:
+    """`solve_pnp_batch` as [M, RESULT_WIDTH] float32 rows on `device`
+    (`unpack_result` reads them), so that a caller fetches one tensor. On
+    CUDA: one packed upload behind the wait `pnp.inputs`, then one launch of
+    the kernel on the current stream, not synchronised. Elsewhere: the plain
+    version's result, packed. The one place that chooses by device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return pack_result(solve_pnp_plain(points2d, cuboid3d, camera, min_required_points, device))
+    with profiler.span("solve"):         # packing, the upload and the launch
+        packed = pack_inputs(points2d, cuboid3d, camera)
+        m, n = packed.shape[0], (packed.shape[1] - INPUT_TAIL) // 2
+        if packed.device.type == "cpu":
+            packed = profiler.upload(packed.pin_memory(), device, "pnp.inputs")
+        elif packed.device != device:
+            packed = packed.to(device)
+        out = torch.empty((m, RESULT_WIDTH), dtype=torch.float32, device=device)
+        if m:
+            lib = _library()
+            with torch.cuda.device(device):
+                _launch(lib, packed, out, n, min_required_points, torch.cuda.current_stream().cuda_stream)
+        return out
 
-    `camera` may be [3, 3] (one intrinsic for all M) or [M, 3, 3] (per
-    object — lets the serving path solve a whole multi-image batch in one
-    call even when images carry different intrinsics). Padding happens in host
-    numpy, then one transfer to `device`."""
-    points2d = np.asarray(points2d)
-    cuboid3d = np.asarray(cuboid3d)
-    camera = np.asarray(camera)
-    m = points2d.shape[0]
-    mp = 1 << max(m - 1, 0).bit_length()
-    if mp != m:
-        pad = mp - m
-        points2d = np.concatenate(
-            [points2d,
-             np.full((pad,) + points2d.shape[1:], -10000.0, points2d.dtype)],
-            axis=0,
-        )
-        unit = np.array(
-            [[(-0.5 if not (i & 4) else 0.5),
-              (-0.5 if not (i & 2) else 0.5),
-              (-0.5 if not (i & 1) else 0.5)] for i in range(8)],
-            cuboid3d.dtype,
-        )
-        cuboid3d = np.concatenate(
-            [cuboid3d, np.broadcast_to(unit, (pad, 8, 3))], axis=0
-        )
-        if camera.ndim == 3:
-            # Benign intrinsic for the dead rows (weights are all zero there,
-            # but the branchless DLT/EPnP still divides by fx/fy).
-            safe = np.array(
-                [[500.0, 0.0, 0.0], [0.0, 500.0, 0.0], [0.0, 0.0, 1.0]],
-                camera.dtype,
-            )
-            camera = np.concatenate(
-                [camera, np.broadcast_to(safe, (pad, 3, 3))], axis=0
-            )
-    res = solve_pnp_batch(points2d, cuboid3d, camera, min_required_points, device)
-    if mp != m:
-        res = PnPResult(*[v[:m] for v in res])
-    return res
+
+solve_pnp_packed.launches = 0
+solve_pnp_packed.rows = 0

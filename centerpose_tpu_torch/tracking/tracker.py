@@ -13,7 +13,7 @@ Parity target: `Tracker` (src/lib/utils/tracker.py:14-314):
 Counterpart of `centerpose_tpu/tracking/tracker.py`. The Kalman math is the
 vectorized block form in tracking/kalman.py (numpy, on the host); the re-PnP
 runs batched on the device for all tracks at once, as ONE padded solve over
-`cfg.max_tracks` slots (`ops/pnp.py::solve_pnp_batch`). The Hungarian solver
+`cfg.max_tracks` slots (`ops/pnp.py::solve_pnp_packed`). The Hungarian solver
 is scipy.optimize.linear_sum_assignment (same optimum as sklearn's deprecated
 linear_assignment).
 """
@@ -27,7 +27,7 @@ import torch
 
 from centerpose_tpu_torch.config import CenterPoseConfig
 from centerpose_tpu_torch.geometry.cuboid import cuboid_vertices
-from centerpose_tpu_torch.ops.pnp import PnPResult, solve_pnp_batch
+from centerpose_tpu_torch.ops.pnp import solve_pnp_packed, unpack_result
 from centerpose_tpu_torch.tracking.kalman import KeypointKalman
 
 
@@ -326,11 +326,10 @@ class Tracker:
             s = np.asarray(scale, np.float64)
             cuboids[i] = cuboid_vertices(s / max(float(s[1]), 1e-9))
 
-        res = solve_pnp_batch(
+        res = unpack_result(solve_pnp_packed(
             kps_pad, cuboids.astype(np.float32),
             np.asarray(self.meta["camera_matrix"], np.float32), device=self.device,
-        )
-        res = PnPResult(*[v.cpu().numpy() for v in res])
+        ).cpu().numpy())
 
         outs = []
         for i, (track, _, _, _) in enumerate(items):

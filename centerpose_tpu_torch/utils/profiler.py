@@ -27,9 +27,10 @@ kernels' timeline.
   the blocking copies, each behind its wait.
 * `synced(site)`: a wait, `wait.<site>`, around a call that synchronises
   by itself (a linear-algebra error check), with no drain before it.
-* `count(name, n)`: a counter. The DCN wrappers' own launch counters
-  (`dcn_v2_forward.launches`, `dcn_v2_bwd_fused.launches`) are reported
-  beside them by `snapshot`, not counted here.
+* `count(name, n)`: a counter. The kernel wrappers' own counters
+  (`dcn_v2_forward.launches`, `dcn_v2_bwd_fused.launches`, the PnP kernel's
+  `solve_pnp_packed.launches` and `.rows`) are reported beside them by
+  `snapshot`, not counted here.
 * `device_phases(name, phases, device)`: CUDA events
   (`enable_timing=True`) recorded on the current stream at the phases'
   boundaries, read with `query()` at the next call or at `snapshot()`,
@@ -252,10 +253,10 @@ class Registry:
 
     def snapshot(self) -> dict:
         """Plain copies: `spans` and `phases` by name (`count`, `total_ms`,
-        the kept `records`), `counters` (with the DCN wrappers' launches)."""
+        the kept `records`), `counters` (with the kernel wrappers' own)."""
         self._resolve()
         counters = dict(self.counters)
-        counters.update(_dcn_launches())
+        counters.update(_kernel_launches())
         return {
             "spans": {name: {"count": s.count, "total_ms": s.total / 1e6,
                              "records": [r.as_dict() for r in s.records]} for name, s in self.spans.items()},
@@ -266,9 +267,9 @@ class Registry:
         }
 
 
-def _dcn_launches() -> Dict[str, int]:
-    """The DCN kernels' wrappers' own launch counters, where their modules
-    are loaded (nothing is imported for them)."""
+def _kernel_launches() -> Dict[str, int]:
+    """The kernels' wrappers' own counters, where their modules are loaded
+    (nothing is imported for them)."""
     out = {}
     fwd = sys.modules.get("centerpose_tpu_torch.ops.dcn_fwd")
     if fwd is not None:
@@ -278,6 +279,10 @@ def _dcn_launches() -> Dict[str, int]:
     if bwd is not None:
         out["dcn_v2_bwd_fused.launches"] = bwd.dcn_v2_bwd_fused.launches
         out["dcn_v2_bwd_fused.launches_bf16"] = bwd.dcn_v2_bwd_fused.launches_bf16
+    pnp = sys.modules.get("centerpose_tpu_torch.ops.pnp")
+    if pnp is not None:
+        out["pnp.launches"] = pnp.solve_pnp_packed.launches
+        out["pnp.rows"] = pnp.solve_pnp_packed.rows
     return out
 
 

@@ -100,10 +100,22 @@ Phases:
            with the plain DCN, head by head (max abs diff <= 2e-3).
   serve    a `Detector` (bf16, vis_thresh 0.05 so that random weights give
            detections) answers three `run(image)` requests and one
-           `run_batch` of 8; the launch counter is set to 0 just before and
-           read just after, and every shape must have been launched 4 times
-           what one forward launched. Then a planted-pose PnP check on the
-           card.
+           `run_batch` of 8; the launch counters are set to 0 just before
+           and read just after, every shape must have been launched 4 times
+           what one forward launched, and the PnP kernel once a `run` with
+           boxes and once for the batch, a row a detection. Then a
+           planted-pose PnP check on the card.
+  pnp_kernel
+           the PnP kernel (`csrc/pnp.cu`) against the plain version on the
+           card over 7 sets of rows (M 1/2/128/130, n 8/16/160, shared and
+           per-object cameras; full, partial, 5-point, exact 4-point,
+           behind-camera, all-invalid and padded rows): `valid` equal but on
+           exact 4-point rows, poses and projections within PNP_TOL_POSE and
+           PNP_TOL_PX where a pose explains the points, a fit no worse where
+           none does; exact 4-point rows (128 more, and those of the sets,
+           pooled) held by outcome: the kernel reaches the planted pose and
+           fits exactly at least as often as the plain version, and agrees
+           with it where both reach it. Then both timed at M=128, n=16.
   track    CenterPoseTrack: `Detector(preset("centerpose_track"))`, float32,
            512x512, weights from `track_weights` (He-normal from seed 0, five
            heads set so that random weights give a coherent video;
@@ -113,8 +125,12 @@ Phases:
            decode on the card; soft-NMS, fusion, PnP, association, Kalman
            filter, scale pool and the batched re-PnP. Required: 16 kernel
            launches in every frame (the counter set to 0 before each), a
+           PnP kernel launch for each solve of the frame (a row a detection,
+           `max_tracks` rows for the re-PnP), a
            non-zero pre_hm, a track id detected in 3 consecutive frames after
-           the 4 warm-up frames, and re-PnP solves. Stage medians from frame
+           the 4 warm-up frames, and re-PnP solves. The rows of every solve
+           are counted by their valid points (0, 1-3, 4-5: EPnP, 6 or more:
+           DLT). Stage medians from frame
            4 on, frames/s, the 16 launches of a frame timed in place; the
            same frames in bfloat16 (16 launches per frame); and the float32
            network with previous-frame inputs through the kernel against the
@@ -398,7 +414,7 @@ from centerpose_tpu_torch.ops.dcn_fwd import (  # noqa: E402
     kernel_weight,
 )
 from centerpose_tpu_torch.ops.decode import object_pose_decode  # noqa: E402
-from centerpose_tpu_torch.ops.pnp import solve_pnp_batch_padded  # noqa: E402
+from centerpose_tpu_torch.ops import pnp  # noqa: E402
 from centerpose_tpu_torch.training.losses import centerpose_loss  # noqa: E402
 from centerpose_tpu_torch.training.trainer import (  # noqa: E402
     create_train_state,
@@ -556,6 +572,10 @@ def reset_launches() -> None:
     dcn_v2_forward.launches_by_shape.clear()
     for fn, *_ in BWD_KERNELS.values():
         fn.launches = fn.launches_bf16 = 0
+
+
+def reset_pnp() -> None:
+    pnp.solve_pnp_packed.launches = pnp.solve_pnp_packed.rows = 0
 
 
 # ------------------------------------------------------------------- build
@@ -1404,6 +1424,7 @@ def phase_serve(cfg, state_dict):
     shape_counts: Counter = Counter()
     hooks = count_dcn_shapes(det.model, shape_counts)
     dcn_v2_forward.launches = 0                          # ---- the main path starts
+    reset_pnp()
     t0 = time.perf_counter()
     singles = [det.run(f) for f in frames[:3]]
     t1 = time.perf_counter()
@@ -1411,6 +1432,7 @@ def phase_serve(cfg, state_dict):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dcn_v2_forward.launches                   # ---- and ends
+    pnp_launches, pnp_rows_solved = pnp.solve_pnp_packed.launches, pnp.solve_pnp_packed.rows
     for h in hooks:
         h.remove()
 
@@ -1431,6 +1453,11 @@ def phase_serve(cfg, state_dict):
     n_det = [len(o["results"]) for o in outs]
     require(max(n_det) > 0, "no image produced a detection")
     require(n_pnp > 0, "no detection got a PnP result")
+    # Every box went through the PnP kernel: one launch a `run` with boxes,
+    # one for the whole `run_batch`.
+    solves = sum(1 for o in singles if o["results"]) + int(any(o["results"] for o in batch))
+    require(pnp_launches == solves and pnp_rows_solved == sum(n_det),
+            f"PnP kernel: {pnp_launches} launches for {pnp_rows_solved} rows, expected {solves} for {sum(n_det)}")
 
     # Planted pose: project a known cuboid with the default camera, solve on
     # the card, recover the translation within 1e-3 relative.
@@ -1441,7 +1468,7 @@ def phase_serve(cfg, state_dict):
     pc = cub @ rot.T + t_true
     cam = DEFAULT_CAMERA
     uv = pc[:, :2] / pc[:, 2:] * [cam[0, 0], cam[1, 1]] + [cam[0, 2], cam[1, 2]]
-    res = solve_pnp_batch_padded(
+    res = pnp.solve_pnp_batch(
         np.repeat(uv, 2, axis=0)[None].astype(np.float32).repeat(3, 0),
         cub[None].astype(np.float32).repeat(3, 0), cam.astype(np.float32), device=DEVICE,
     )
@@ -1456,9 +1483,273 @@ def phase_serve(cfg, state_dict):
         "boxes_per_image": [len(o["boxes"]) for o in outs],
         "run_ms_each": (t1 - t0) * 1e3 / 3, "run_batch_ms": (t2 - t1) * 1e3,
         "run_times_s": singles[-1]["times"], "run_batch_times_s": batch[0]["times"],
-        "planted_pose_translation_rel_err": rel,
+        "planted_pose_translation_rel_err": rel, "pnp_launches": pnp_launches, "pnp_rows": pnp_rows_solved,
     })
-    return launches, shape_counts
+    return launches, shape_counts, {"launches_serve": pnp_launches, "rows_serve": pnp_rows_solved}
+
+
+# ---------------------------------------------------------------- pnp_kernel
+PNP_SOURCE = "centerpose_tpu_torch/csrc/pnp.cu"
+# The PnP kernel runs on the FMA units: float32 at 67 TFLOP/s, no tensor cores.
+PEAK_F32_FMA = 67e12
+# Kernel against the plain version on rows whose points a pose explains (the
+# plain version's mean reprojection error under PNP_FIT_PX; the rows carry 0.5
+# px of noise): the projected corners within 0.02 px (a sixth of the serving
+# check's 0.12 px pose limit, and ~5x the largest gap of the two float32
+# Levenberg-Marquardt runs there), R and t within 1e-3 (the port's PnP parity
+# against the JAX package, tests/test_torch_port_serving.py). Where no pose
+# explains them (an object behind the camera, fitted in front of it: tens of
+# px), the minimum is flat, 20 fixed iterations stop short of it and two
+# float32 runs part by a tenth of a px: there the kernel's fit must be as good
+# as the plain version's (mean error within 0.1 % + 1e-3 px). Exact 4-point
+# rows (see `phase_pnp_kernel`) reach the planted pose when the translation
+# lies within PNP_PLANTED of it.
+PNP_TOL_PX = 0.02
+PNP_TOL_POSE = 1e-3
+PNP_FIT_PX = 2.0
+PNP_FIT_REL = 1e-3
+PNP_PLANTED = 1e-2
+PNP_SERVE_SHAPE = (128, 16)     # a serving chunk: 64 images x 2 boxes, rep_mode 1
+
+
+def pnp_rows(seed, m, n, shared, four=False):
+    """m objects of n points (n / 8 per corner) at planted poses, and the
+    kind of each row: `full` (noisy), `partial` (some points invalid),
+    `epnp4` / `epnp5` (exact points of 4 or 5 corners only), `none` (no valid
+    point), `padded` (as the tracker's unused slots: no valid point, unit
+    cuboid; the safe camera where cameras are per object), `behind` (the
+    object behind the camera);
+    `four`: every row `epnp4`. Returns points, cuboids, camera ([3, 3] where
+    shared), the planted translations and the kinds."""
+    rng = np.random.RandomState(seed)
+    reps = n // 8
+    pts, cubs, cams, ts, kinds = [], [], [], [], []
+    safe = np.array([[500.0, 0, 0], [0, 500.0, 0], [0, 0, 1]])
+    for _ in range(m):
+        cam = DEFAULT_CAMERA.astype(np.float64).copy()
+        if not shared:
+            cam[0, 0] = cam[1, 1] = rng.uniform(400, 800)
+            cam[0, 2], cam[1, 2] = rng.uniform(250, 400), rng.uniform(200, 280)
+        cub = cuboid_vertices(rng.uniform(0.3, 1.5, 3))
+        cub = cub / (2 * cub[:, 1].max())
+        ax = rng.randn(3)
+        ang = np.linalg.norm(ax) * 0.8
+        k = ax / np.linalg.norm(ax)
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        rot = np.eye(3) + np.sin(ang) * kx + (1 - np.cos(ang)) * kx @ kx
+        t = np.array([rng.uniform(-0.4, 0.4), rng.uniform(-0.3, 0.3), rng.uniform(2.0, 7.0)])
+        u = 0.15 if four else rng.rand()
+        kind = "full"
+        if u < 0.06:
+            t[2], kind = -t[2], "behind"
+        pc = cub @ rot.T + t
+        uv = pc[:, :2] / pc[:, 2:] * [cam[0, 0], cam[1, 1]] + [cam[0, 2], cam[1, 2]]
+        p = np.repeat(uv, reps, axis=0) + rng.randn(n, 2) * 0.5
+        if kind == "behind":
+            pass
+        elif u < 0.16:
+            keep = rng.choice(8, 4 if (four or u >= 0.11) else 5, replace=False)
+            kind = f"epnp{len(keep)}"
+            p = np.repeat(uv, reps, axis=0)
+            p[[j for j in range(n) if j // reps not in keep or j % reps]] = -10000.0
+        elif u < 0.20:
+            p[:], kind = -10000.0, "none"
+        elif u < 0.24:
+            p[:], cub, kind = -10000.0, cuboid_vertices(np.ones(3)), "padded"
+            cam = cam if shared else safe
+        elif u < 0.30:
+            p[rng.choice(n, rng.randint(1, n // 3 + 1), replace=False)] = -10000.0
+            kind = "partial"
+        pts.append(p)
+        cubs.append(cub)
+        cams.append(cam)
+        ts.append(t)
+        kinds.append(kind)
+    cam_arg = DEFAULT_CAMERA if shared else np.array(cams)
+    return (np.array(pts, np.float32), np.array(cubs, np.float32), np.asarray(cam_arg, np.float32),
+            np.array(ts), kinds)
+
+
+def pnp_host(res) -> dict:
+    return {name: getattr(res, name).cpu().numpy() for name in pnp.PnPResult._fields}
+
+
+def pnp_compare(kern, plain, kinds):
+    """Largest differences on rows valid in both, split into the rows whose
+    points a pose explains and those it does not; `valid` must be equal but
+    on the exact 4-point rows, which `four_point_rows` holds."""
+    four = np.array([k == "epnp4" for k in kinds])
+    differ = kern["valid"] != plain["valid"]
+    require(not (differ & ~four).any(),
+            f"pnp: valid differs on rows {np.nonzero(differ & ~four)[0].tolist()} "
+            f"({[kinds[i] for i in np.nonzero(differ & ~four)[0]]})")
+    both = kern["valid"] & plain["valid"]
+    fitted = plain["reproj_error"] <= PNP_FIT_PX
+    out = {}
+    for label, rows in (("unique", both & ~four & fitted), ("unfitted", both & ~four & ~fitted)):
+        if rows.any():
+            out[label] = pnp_gaps(kern, plain, rows)
+    if "unfitted" in out:
+        rows = both & ~four & ~fitted
+        worse = kern["reproj_error"][rows] - plain["reproj_error"][rows] * (1 + PNP_FIT_REL)
+        out["unfitted"]["fit_worse_px"] = float(worse.max())
+    return out
+
+
+def pnp_gaps(kern, plain, rows) -> dict:
+    return {"rows": int(rows.sum()), **{
+        name: float(np.abs(kern[name][rows] - plain[name][rows]).max())
+        for name in ("projected", "rotation", "translation", "rotation_gl", "translation_gl",
+                     "quaternion", "quaternion_gl", "reproj_error")}}
+
+
+def four_point_rows(kern, plain, ts, cpu=None) -> dict:
+    """The kernel on exact 4-point rows (every row given), against the plain
+    version on the card: each reaches the planted pose (valid, translation
+    within PNP_PLANTED) and fits the points exactly (valid, mean error within
+    PNP_TOL_PX) on how many rows, and the largest gaps on the rows where both
+    reached it. Required: the kernel reaches the planted pose and fits
+    exactly at least as often as the plain version, and where both reach it
+    they agree as on rows with a unique pose. `cpu`: the plain version on the
+    CPU, reported beside them."""
+    def planted(res):
+        return res["valid"] & (np.abs(res["translation"] - ts).max(axis=1) < PNP_PLANTED)
+
+    def exact(res):
+        return res["valid"] & (res["reproj_error"] <= PNP_TOL_PX)
+
+    def agree(a, b):
+        return int((np.abs(a["projected"] - b["projected"]).reshape(len(ts), -1).max(axis=1)
+                    <= PNP_TOL_PX).sum())
+    out = {"rows": len(ts), "kernel_at_planted_pose": int(planted(kern).sum()),
+           "plain_at_planted_pose": int(planted(plain).sum()),
+           "kernel_exact_fit": int(exact(kern).sum()), "plain_exact_fit": int(exact(plain).sum()),
+           "kernel_agrees_with_plain": agree(kern, plain), "valid": int(kern["valid"].sum()),
+           "valid_plain": int(plain["valid"].sum()), "valid_differs": int((kern["valid"] != plain["valid"]).sum())}
+    if cpu is not None:
+        out.update({"plain_cpu_at_planted_pose": int(planted(cpu).sum()),
+                    "plain_cpu_exact_fit": int(exact(cpu).sum()),
+                    "plain_cpu_agrees_with_plain": agree(cpu, plain)})
+    both = planted(kern) & planted(plain)
+    if both.any():
+        out["both_at_planted_pose"] = pnp_gaps(kern, plain, both)
+    return out
+
+
+def require_four_point(four: dict, label: str) -> None:
+    require(four["kernel_at_planted_pose"] >= four["plain_at_planted_pose"],
+            f"pnp {label}: the kernel reaches the planted pose on {four['kernel_at_planted_pose']} exact "
+            f"4-point rows, the plain version on {four['plain_at_planted_pose']}")
+    require(four["kernel_exact_fit"] >= four["plain_exact_fit"],
+            f"pnp {label}: the kernel fits {four['kernel_exact_fit']} exact 4-point rows, "
+            f"the plain version {four['plain_exact_fit']}")
+    g = four.get("both_at_planted_pose")
+    if g:
+        require(g["projected"] <= PNP_TOL_PX and all(g[k] <= PNP_TOL_POSE for k in ("rotation", "translation")),
+                f"pnp {label}: 4-point rows at the planted pose in both versions differ: {g}")
+
+
+def pnp_work(m, n):
+    """Operations and bytes of one solve of m rows of n points on the DLT
+    path (every served row takes it): A^T A (78 entries of two rows a point),
+    a 12x12 symmetric eigensolver (~9 x 12^3), 20 Levenberg-Marquardt
+    iterations (projection, Jacobian, J^T J, J^T r and the candidate's cost:
+    ~190 a point, a 6x6 solve); the packed rows in and out once."""
+    flops = m * (312 * n + 9 * 12 ** 3 + 20 * (190 * n + 200))
+    return flops, 4 * m * (2 * n + pnp.INPUT_TAIL + pnp.RESULT_WIDTH)
+
+
+def phase_pnp_kernel():
+    """The PnP kernel against the plain version on the card, over rows of
+    every kind, then both timed at the serving shape."""
+    t0 = time.time()
+    checks, pooled = [], []
+    for seed, m, n, shared in ((1, 1, 16, True), (2, 2, 8, False), (3, 128, 16, False), (4, 130, 16, True),
+                               (5, 128, 8, False), (6, 130, 160, False), (7, 128, 8, True)):
+        pts, cubs, cam, ts, kinds = pnp_rows(seed, m, n, shared)
+        kern = pnp_host(pnp.solve_pnp_batch(pts, cubs, cam, device=DEVICE))
+        again = pnp_host(pnp.solve_pnp_batch(pts, cubs, cam, device=DEVICE))
+        require(all(np.array_equal(kern[k], again[k], equal_nan=True) for k in kern),
+                f"pnp: two launches on the same rows differ (M={m}, N={n})")
+        plain = pnp_host(pnp.solve_pnp_plain(pts, cubs, cam, device=DEVICE))
+        gaps = pnp_compare(kern, plain, kinds)
+        u = gaps.get("unique")
+        if u:
+            require(u["projected"] <= PNP_TOL_PX, f"pnp M={m} N={n}: projections {u['projected']} px apart")
+            for name in ("rotation", "translation", "rotation_gl", "translation_gl"):
+                require(u[name] <= PNP_TOL_POSE, f"pnp M={m} N={n}: {name} {u[name]} apart")
+        if "unfitted" in gaps:
+            require(gaps["unfitted"]["fit_worse_px"] <= 1e-3,
+                    f"pnp M={m} N={n}: the kernel's fit is {gaps['unfitted']['fit_worse_px']} px worse")
+        for kind in ("none", "padded"):
+            rows = [i for i, k in enumerate(kinds) if k == kind]
+            require(not kern["valid"][rows].any(), f"pnp M={m} N={n}: a {kind} row came out valid")
+        four = np.array([k == "epnp4" for k in kinds])
+        if four.any():
+            pooled.append(({k: v[four] for k, v in kern.items()}, {k: v[four] for k, v in plain.items()}, ts[four]))
+            gaps["epnp4"] = four_point_rows(*pooled[-1])
+        checks.append({"m": m, "n": n, "shared_camera": shared,
+                       "kinds": {k: kinds.count(k) for k in sorted(set(kinds))}, "gaps": gaps,
+                       "valid": int(kern["valid"].sum())})
+    # Exact 4-point rows: every combination of the 4-dimensional null space
+    # reprojects exactly, so the EPnP hypothesis is chosen by rounding and the
+    # outcome (the pose, and whether it lands in front of the camera) depends
+    # on the basis an eigensolver returns there: the plain version on the CPU
+    # (LAPACK) and on the card (cuSOLVER) part on some rows, as the kernel and
+    # the plain version do. So these rows are held by outcome: 128 more of
+    # them, and those of the sets above, pooled (`four_point_rows`).
+    pts, cubs, cam, ts, kinds = pnp_rows(8, 128, 8, True, four=True)
+    kern = pnp_host(pnp.solve_pnp_batch(pts, cubs, cam, device=DEVICE))
+    plain = pnp_host(pnp.solve_pnp_plain(pts, cubs, cam, device=DEVICE))
+    cpu = pnp_host(pnp.solve_pnp_plain(pts, cubs, cam, device="cpu"))
+    pnp_compare(kern, plain, kinds)
+    four_rows = four_point_rows(kern, plain, ts, cpu)
+    pooled.append((kern, plain, ts))
+    four_pooled = four_point_rows(*(
+        {k: np.concatenate([p[i][k] for p in pooled]) for k in kern} for i in (0, 1)),
+        np.concatenate([p[2] for p in pooled]))
+    require_four_point(four_pooled, "pooled")
+
+    # Times at the serving shape: the kernel alone on rows already on the
+    # card (device time, queued behind a device sleep, L2 warm), the plain
+    # version on the same device tensors (host clock to a synchronisation:
+    # its own waits are part of it), and both public paths from host arrays
+    # to host numpy.
+    m, n = PNP_SERVE_SHAPE
+    pts, cubs, cam, _, _ = pnp_rows(9, m, n, True)
+    rows = pnp.pack_inputs(pts, cubs, cam).to(DEVICE)
+    out = torch.empty((m, pnp.RESULT_WIDTH), device=DEVICE)
+    lib = pnp._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel_ms = time_ms(lambda: pnp._launch(lib, rows, out, n, 4, stream), iters=20, queued=True)
+    dev = [torch.from_numpy(a).to(DEVICE) for a in (pts, cubs, cam)]
+
+    def wall_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+    plain_ms = wall_ms(lambda: pnp.solve_pnp_plain(*dev, device=DEVICE), 10)
+    path_ms = wall_ms(lambda: pnp.unpack_result(pnp.solve_pnp_packed(pts, cubs, cam, device=DEVICE).cpu().numpy()), 20)
+    plain_path_ms = wall_ms(lambda: [v.cpu().numpy() for v in pnp.solve_pnp_plain(pts, cubs, cam, device=DEVICE)], 10)
+    flops, nbytes = pnp_work(m, n)
+    bound_ms = max(flops / PEAK_F32_FMA, nbytes / PEAK_BYTES) * 1e3
+    entry = {"name": "pnp", "route": "cuda", "source": PNP_SOURCE,
+             "replaces": "no TPU kernel (the JAX package's PnP is jitted XLA)", "shape": [m, n],
+             "dtype": "float32", "ms": kernel_ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
+             "library_ms": None, "flops": flops, "bytes": nbytes,
+             "bound_by": "operations" if flops / PEAK_F32_FMA > nbytes / PEAK_BYTES else "bytes",
+             "host_path_ms": path_ms, "plain_host_path_ms": plain_path_ms,
+             "smem_bytes": lib.pnp_smem_bytes(n)}
+    emit({"phase": "pnp_kernel", "seconds": round(time.time() - t0, 1), "checks": checks,
+          "epnp4_rows": four_rows, "epnp4_pooled": four_pooled,
+          "tolerance": {"px": PNP_TOL_PX, "pose": PNP_TOL_POSE, "planted": PNP_PLANTED},
+          **{k: entry[k] for k in ("ms", "bound_ms", "plain_ms", "host_path_ms", "plain_host_path_ms",
+                                   "smem_bytes")}})
+    return entry
 
 
 # ------------------------------------------------------------------- track
@@ -1510,10 +1801,11 @@ def synthetic_video(n: int, seed: int):
 
 
 def run_video(det, frames):
-    """Every frame through `Detector.run`, the launch counter read around
-    each; the maximum of the pre_hm the network was given and the re-PnP
-    solves are recorded by wrapping the detector's `_forward_decode` and the
-    tracker's `_re_pnp_batch`."""
+    """Every frame through `Detector.run`, the DCN and PnP launch counters
+    set to 0 before each and read after; the maximum of the pre_hm the
+    network was given, the re-PnP solves and each PnP solve of the frame
+    (`spy_pnp`) are recorded by wrapping the detector's `_forward_decode`,
+    the tracker's `_re_pnp_batch` and the two modules' `solve_pnp_packed`."""
     pre_hm_max, repnp = [], {"calls": 0, "valid": 0}
     real_forward, real_repnp = det._forward_decode, det.tracker._re_pnp_batch
 
@@ -1528,15 +1820,21 @@ def run_video(det, frames):
         return outs
 
     det._forward_decode, det.tracker._re_pnp_batch = forward_decode, re_pnp
+    solves = []
+    undo = spy_pnp(solves)
     per_frame = []
     try:
         for frame in frames:
             dcn_v2_forward.launches = 0
+            reset_pnp()
+            solves.clear()
             t0 = time.perf_counter()
             out = det.run(frame, {"camera_matrix": DEFAULT_CAMERA})
             torch.cuda.synchronize()
             per_frame.append({
                 "wall_ms": (time.perf_counter() - t0) * 1e3, "launches": dcn_v2_forward.launches,
+                "pnp_launches": pnp.solve_pnp_packed.launches, "pnp_rows": pnp.solve_pnp_packed.rows,
+                "pnp_solves": list(solves),
                 "times": out["times"], "tracks": len(out["results"]),
                 # ids detected in this frame (matched or new; not the aging ones)
                 "ids": [d["tracking_id"] for d in out["results"] if d["age"] == 1],
@@ -1544,9 +1842,61 @@ def run_video(det, frames):
                 "boxes": len(out["boxes"]),
             })
     finally:
+        undo()
         del det._forward_decode, det.tracker._re_pnp_batch
     hm_max = {f: float(v) for f, v in pre_hm_max}
     return per_frame, hm_max, repnp
+
+
+def spy_pnp(solves):
+    """Wraps the Detector's and the tracker's `solve_pnp_packed` so that each
+    solve appends (its caller, its rows, each row's valid points) to
+    `solves`; returns the undo."""
+    import centerpose_tpu_torch.inference.detector as detector_module
+    import centerpose_tpu_torch.tracking.tracker as tracker_module
+
+    saved = []
+    for caller, module in (("detector", detector_module), ("tracker", tracker_module)):
+        real = module.solve_pnp_packed
+
+        def spy(points2d, *args, _real=real, _caller=caller, **kwargs):
+            p = np.asarray(points2d)
+            solves.append((_caller, p.shape[0], ((p[..., 0] > -5000) & (p[..., 1] > -5000)).sum(axis=1)))
+            return _real(points2d, *args, **kwargs)
+        module.solve_pnp_packed = spy
+        saved.append((module, real))
+
+    def undo():
+        for module, real in saved:
+            module.solve_pnp_packed = real
+    return undo
+
+
+def pnp_per_frame(per_frame, max_tracks: int, label: str) -> dict:
+    """Requires one PnP kernel launch for each solve of a frame with rows, a
+    row for each row solved and `max_tracks` rows in each re-PnP, and a
+    re-PnP in some frame; returns the counts, and the rows of each caller by
+    their valid points."""
+    by_points = {c: {"0": 0, "1-3": 0, "4-5": 0, "6+": 0} for c in ("detector", "tracker")}
+    for i, f in enumerate(per_frame):
+        solved = [(c, m) for c, m, _ in f["pnp_solves"] if m]
+        require(f["pnp_launches"] == len(solved) and f["pnp_rows"] == sum(m for _, m in solved),
+                f"{label} frame {i}: {f['pnp_launches']} PnP launches for {f['pnp_rows']} rows, "
+                f"solves {solved}")
+        re_rows = [m for c, m in solved if c == "tracker"]
+        require(len(re_rows) <= 1 and all(m == max_tracks for m in re_rows),
+                f"{label} frame {i}: re-PnP solves of {re_rows} rows, expected one of {max_tracks}")
+        for c, _, n_valid in f["pnp_solves"]:
+            for key, lo, hi in (("0", 0, 0), ("1-3", 1, 3), ("4-5", 4, 5), ("6+", 6, 1 << 30)):
+                by_points[c][key] += int(((n_valid >= lo) & (n_valid <= hi)).sum())
+    re_solves = sum(c == "tracker" for f in per_frame for c, _, _ in f["pnp_solves"])
+    require(re_solves > 0, f"{label}: the tracker's re-PnP never reached the PnP kernel")
+    return {"launches": sum(f["pnp_launches"] for f in per_frame),
+            "rows": sum(f["pnp_rows"] for f in per_frame),
+            "launches_per_frame": [f["pnp_launches"] for f in per_frame],
+            "rows_per_frame": [f["pnp_rows"] for f in per_frame],
+            "re_pnp_solves": re_solves, "max_tracks": max_tracks,
+            "rows_by_valid_points": by_points}
 
 
 def stage_medians(per_frame):
@@ -1598,6 +1948,7 @@ def phase_track(per_forward):
     run = longest_run(per_frame)
     require(run >= 3, f"no track id persists over 3 consecutive frames after warm-up ({run})")
     require(repnp["calls"] > 0 and repnp["valid"] > 0, f"the tracker's re-PnP never ran: {repnp}")
+    pnp_counts = pnp_per_frame(per_frame, cfg.max_tracks, "track")
     med = stage_medians(per_frame)
 
     # The 16 launches of one frame in place: CUDA events around each.
@@ -1665,14 +2016,14 @@ def phase_track(per_forward):
         "longest_id_run_after_warmup": run,
         "boxes_per_frame": [f["boxes"] for f in per_frame],
         "pre_hm_max_by_frame": hm_max, "pre_hm_max_by_frame_bfloat16": hm_max16,
-        "re_pnp": repnp,
+        "re_pnp": repnp, "pnp": pnp_counts,
         "dcn_kernel_ms_per_frame_in_place": dcn_ms,
         "dcn_share_of_net_float32": dcn_ms / med["net"],
         "f32_kernel_vs_plain_max_abs_diff": diffs,
     })
     del det, out_k, out_p
     torch.cuda.empty_cache()
-    return shape_counts, sum(launches), med
+    return shape_counts, sum(launches), med, pnp_counts
 
 
 # ------------------------------------------------------------------- train
@@ -3283,6 +3634,7 @@ def phase_track_dlav1(per_forward):
         launches16 = [f["launches"] for f in per_frame16]
         require(all(n == 16 for n in launches + launches16),
                 f"dlav1 tracking: DCN forward launches per frame {launches} / bf16 {launches16}, expected 16")
+        pnp_counts = pnp_per_frame(per_frame, cfg.max_tracks, "dlav1 tracking")
         require(counts["dcn_v2_fwd_bf16"] == 16 * len(frames), f"dlav1 tracking: bf16 launches {counts}")
         require(train_fwd == 16 * steps and counts["dcn_v2_bwd_fused"] == 16 * steps
                 and counts["dcn_v2_bwd_fused_bf16"] == 0,
@@ -3340,7 +3692,7 @@ def phase_track_dlav1(per_forward):
         "launches_per_frame": launches, "launches_per_frame_bfloat16": launches16,
         "live_tracks_per_frame": [f["tracks"] for f in per_frame],
         "boxes_per_frame": [f["boxes"] for f in per_frame],
-        "pre_hm_max_by_frame": hm_max, "re_pnp": repnp,
+        "pre_hm_max_by_frame": hm_max, "re_pnp": repnp, "pnp": pnp_counts,
         "f32_kernel_vs_plain_max_abs_diff": diffs,
         "trace_names": {"kernels": dict(kernels), "profiler_ops": sorted(
             {e.key for e in prof.key_averages() if "dcn" in e.key.lower()})},
@@ -3350,7 +3702,7 @@ def phase_track_dlav1(per_forward):
     del det, out_k, out_p
     torch.cuda.empty_cache()
     emit(out)
-    return all_fwd, counts
+    return all_fwd, counts, pnp_counts
 
 
 # --------------------------------------------------------------------- ddp
@@ -3873,8 +4225,9 @@ def main() -> int:
     if COMPARE_FWD:
         emit({"phase": "compared_totals", "per": "the 16 calls of one forward, b8: batch 8, b1: batch 1",
               **compared_totals(entries, per_forward)})
-    launches, shape_counts = phase_serve(cfg, state)
-    track_counts, track_launches, _ = phase_track(per_forward)
+    launches, shape_counts, pnp_serve = phase_serve(cfg, state)
+    pnp_entry = phase_pnp_kernel()
+    track_counts, track_launches, _, pnp_track = phase_track(per_forward)
     train_fwd_launches, train_counts = phase_train(per_forward, entries, bwd_per_shape)
     train_bf16_counts = phase_train_bf16(per_forward)
     phase_train_cli()
@@ -3884,7 +4237,7 @@ def main() -> int:
     phase_kernels_r50()
     archs_fwd, archs_fused = phase_archs(entries, bwd_per_shape, bwd_bf16_per_shape)
     acc_fwd, acc_counts = phase_accuracy(per_forward)
-    v1_fwd, v1_counts = phase_track_dlav1(per_forward)
+    v1_fwd, v1_counts, pnp_v1 = phase_track_dlav1(per_forward)
     ddp_fwd, ddp_fused = phase_ddp(per_forward)
     phase_psroi()
     bench_fwd, bench_counts = phase_bench(per_forward)
@@ -3980,8 +4333,14 @@ def main() -> int:
     # `entry()` and the dryrun run the float32 body.
     row_entry["launches_bench"] = bench_counts["dcn_v2_fwd"]
     require(row_entry["launches_bench"] > 0, "the measuring entry points never launched the float32 body")
+    # The PnP kernel's launches and rows on each path, each counted from 0.
+    pnp_entry.update(pnp_serve)
+    for path, counts in (("track", pnp_track), ("track_dlav1", pnp_v1)):
+        pnp_entry[f"launches_{path}"], pnp_entry[f"rows_{path}"] = counts["launches"], counts["rows"]
+    require(all(pnp_entry[f"launches_{p}"] > 0 for p in ("serve", "track", "track_dlav1")),
+            f"a path never launched the PnP kernel: {pnp_entry}")
     summary = {"kernels": entries + [row_entry]
-               + fused_entries["float32"] + fused_entries["bfloat16"]}
+               + fused_entries["float32"] + fused_entries["bfloat16"] + [pnp_entry]}
     # A kernel faster than its bound would mean a wrong bound, not a fast
     # kernel: every entry's time, and the float32 times (B=8, B=1) of the
     # forward's entries.

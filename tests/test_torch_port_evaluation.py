@@ -211,7 +211,7 @@ def test_native_library_is_built_from_the_package_source(tmp_path, monkeypatch):
     assert path.parent == _build.BUILD and path.name.startswith("libiou3d-")
     native.get_lib()
     assert path.is_file()
-    assert _build.sources() == ["dcn_v2_bwd", "dcn_v2_fwd"]
+    assert _build.sources() == ["dcn_v2_bwd", "dcn_v2_fwd", "pnp"]
 
     broken = tmp_path / "iou3d.cpp"
     broken.write_text("double iou3d( {\n")

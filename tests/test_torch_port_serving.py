@@ -118,7 +118,9 @@ def _planted_poses(seed, m, noise=0.0):
 
 def test_solve_pnp_batch_padded_matches_jax():
     """6 objects with all 16 points (noisy), one with 5 points and one with 4
-    (the EPnP initialiser), one with 3 (invalid), one with none. `valid` equal; pose atol 1e-3
+    (the EPnP initialiser), one with 3 (invalid), one with none, against the
+    JAX package's padded solve (M = 10 padded to 16 there; the port's solve
+    takes any M). `valid` equal; pose atol 1e-3
     (20 LM iterations from initialisers whose eigenvectors differ in sign and
     order between the libraries); projections atol 0.05 px."""
     pts, cubs, rs, ts, cam = _planted_poses(0, 10, noise=0.3)
@@ -129,10 +131,10 @@ def test_solve_pnp_batch_padded_matches_jax():
         pts[row] = clean[row]            # few points: exact data, unique pose
         drop = [i for i in range(16) if i % 2 or i // 2 not in keep]
         pts[row, drop] = -10000.0
-    # Per-object intrinsics, M = 10 padded to 16 inside.
+    # Per-object intrinsics.
     cams = np.broadcast_to(cam, (10, 3, 3)).copy()
     ref = jax_pnp.solve_pnp_batch_padded(pts, cubs, cams)
-    out = pnp.solve_pnp_batch_padded(pts, cubs, cams, device="cpu")
+    out = pnp.solve_pnp_batch(pts, cubs, cams, device="cpu")
     valid = np.asarray(ref.valid)
     np.testing.assert_array_equal(out.valid.numpy(), valid)
     assert valid.tolist() == [True] * 8 + [False, False]
@@ -150,7 +152,7 @@ def test_solve_pnp_batch_padded_matches_jax():
     np.testing.assert_allclose(out.translation.numpy()[6:8], ts[6:8], atol=2e-2)
     np.testing.assert_allclose(out.rotation.numpy()[6:8], rs[6:8], atol=2e-2)
     # A shared [3, 3] camera gives the same answer as per-object copies.
-    shared = pnp.solve_pnp_batch_padded(pts, cubs, cam, device="cpu")
+    shared = pnp.solve_pnp_batch(pts, cubs, cam, device="cpu")
     np.testing.assert_allclose(
         shared.translation.numpy()[v], out.translation.numpy()[v], atol=1e-4)
 

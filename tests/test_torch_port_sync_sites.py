@@ -19,9 +19,9 @@ from centerpose_tpu_torch.models.factory import create_model
 from centerpose_tpu_torch.training import trainer
 from centerpose_tpu_torch.utils import profiler
 
-# The wait sites of a steady chunk of `run_batch_stream` (PERF.md lists them).
-CHUNK_SITES = {"frames", "transforms", "warp.mean", "warp.std", "dets", "pnp.points", "pnp.cuboids",
-               "pnp.camera", "pnp.eigh", "pnp.svd", "pnp.pairs", "pnp.basis", "pnp.gl_swap", "pnp.results"}
+# The wait sites of a steady chunk of `run_batch_stream` (PERF.md lists them):
+# PnP's are its one packed upload and its one packed fetch.
+CHUNK_SITES = {"frames", "transforms", "warp.mean", "warp.std", "dets", "pnp.inputs", "pnp.results"}
 
 
 @pytest.fixture
@@ -48,14 +48,19 @@ def test_steady_chunk_syncs_only_at_wait_sites(card):
     for _ in range(3):
         next(stream)
     profiler.reset()
+    before = profiler.snapshot()["counters"]
     with profiler.strict_syncs():
         outs = next(stream)
         phases = profiler.snapshot()["phases"]
     boxes = sum(len(o["results"]) for o in outs)
     assert boxes > 0, "no box reached PnP: its sites went unchecked"
-    spans = profiler.snapshot()["spans"]
-    sites = {name[len("wait."):] for name in spans if name.startswith("wait.")}
+    snap = profiler.snapshot()
+    sites = {name[len("wait."):] for name in snap["spans"] if name.startswith("wait.")}
     assert sites == CHUNK_SITES
+    assert all(snap["spans"]["wait." + site]["count"] == 1 for site in ("pnp.inputs", "pnp.results"))
+    # the chunk's boxes went through the kernel, in one launch
+    assert snap["counters"]["pnp.launches"] - before.get("pnp.launches", 0) == 1
+    assert snap["counters"]["pnp.rows"] - before.get("pnp.rows", 0) == boxes
     assert phases["model"]["count"] >= 1 and phases["model"]["records"][0]["ms"]["model"] > 0
     profiler.reset()
 
