@@ -13,7 +13,9 @@ Stages:
           (numpy) in the multi-scale / fix_short / keep-resolution modes.
   `net`   device: warp → (tracking: previous-frame heatmap render) →
           network forward → sigmoid → decode, then ONE fetch of the decoded
-          detections to the host.
+          detections to the host. In the tracking model's `run` on the card,
+          network and decode replay as one CUDA graph
+          (`_forward_decode_graphed`).
   `post`  host: map coords back to image space (tiny, K×2 points).
   `merge` host: threshold + soft-NMS over <K boxes; for tracking, the
           inverse-variance fusion of the two keypoint estimates.
@@ -28,7 +30,10 @@ Per-stage wall-clock timing is reported with the reference's stage names
 stages' spans (`utils/profiler.py`): `run` is one span a frame, the batched
 path a `submit` and a `finish` span a chunk under one chunk id, and every
 blocking copy sits behind a `wait` span, so the host's time splits into
-working and waiting on the card.
+working and waiting on the card. For the tracking model `net` holds a
+`render` span (the previous-frame heatmaps' host half) and `track` the
+tracker's own (`tracking/tracker.py`). Both paths record the device phase
+`model` (CUDA events from before the frames' upload to after decode).
 
 Tracking (`cfg.tracking_task`, the dla_34 CenterPoseTrack model) runs one
 frame per `run` call. The first frame of a video warps on the host, because
@@ -45,6 +50,7 @@ the reference's canvas set (`utils/debugger.py`).
 
 from __future__ import annotations
 
+import collections
 import itertools
 import time
 from typing import Any, Dict, List, Mapping, Optional, Union
@@ -58,6 +64,7 @@ from centerpose_tpu_torch.geometry.cuboid import cuboid_vertices
 from centerpose_tpu_torch.inference.nms import soft_nms
 from centerpose_tpu_torch.models.convert import load_reference_state_dict
 from centerpose_tpu_torch.models.factory import create_model
+from centerpose_tpu_torch.ops.dcn_fwd import dcn_v2_forward
 from centerpose_tpu_torch.ops.decode import object_pose_decode
 from centerpose_tpu_torch.ops.pnp import PnPResult, solve_pnp_packed, unpack_result
 from centerpose_tpu_torch.ops.resample import (
@@ -137,6 +144,28 @@ def _fetch(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _dcn_launches(since=None):
+    """The DCN forward's launch counters (all, bf16, by shape), or what they
+    gained since `since`."""
+    now = (dcn_v2_forward.launches, dcn_v2_forward.launches_bf16,
+           collections.Counter(dcn_v2_forward.launches_by_shape))
+    if since is None:
+        return now
+    return now[0] - since[0], now[1] - since[1], now[2] - since[2]
+
+
+def _count_dcn_launches(launched, sign: int) -> None:
+    """Add (`sign` 1) or take back (-1) the launches `_dcn_launches` read."""
+    dcn_v2_forward.launches += sign * launched[0]
+    dcn_v2_forward.launches_bf16 += sign * launched[1]
+    if sign > 0:
+        dcn_v2_forward.launches_by_shape.update(launched[2])
+    else:
+        dcn_v2_forward.launches_by_shape.subtract(launched[2])
+        for shape in [k for k, v in dcn_v2_forward.launches_by_shape.items() if v <= 0]:
+            del dcn_v2_forward.launches_by_shape[shape]
+
+
 class Detector:
     """Single-category CenterPose detector (image model or tracking model).
 
@@ -183,7 +212,14 @@ class Detector:
         # >= 2: `run` keeps what `render_debug` draws (demo.py --debug 2).
         self.debug_level = 0
         self._debug_raw: Optional[Dict[str, Any]] = None
+        # True: `run`'s network and decode replay as one CUDA graph on the
+        # card (`_forward_decode_graphed`). On for the tracking model, a live
+        # stream at batch 1 whose frame would otherwise wait on the network's
+        # launches; False runs them eagerly, as a caller that wraps
+        # `_forward_decode` or hooks the model's modules call by call needs.
+        self.graphed = self.device.type == "cuda" and self.cfg.tracking_task
         self._ids = itertools.count()   # frame and chunk ids of the spans
+        self._graphs: Dict[tuple, tuple] = {}   # `_forward_decode_graphed`'s
 
     @property
     def cfg(self) -> CenterPoseConfig:
@@ -217,22 +253,63 @@ class Detector:
         return outputs, dets
 
     @torch.no_grad()
+    def _forward_decode_graphed(self, *inputs: torch.Tensor):
+        """`_forward_decode(*inputs)` as one CUDA graph replay. At batch 1 the
+        network's hundreds of launches take the host longer than the card
+        takes to run them, so a frame would wait on Python, not on the card.
+        A graph is captured once per configuration, TF32 settings and input
+        shapes, on the first call that needs it: that call runs eagerly on a
+        side stream and returns what it ran, then captures. Each later call
+        copies its inputs into the graph's and replays it: the same kernels on
+        the same operands, so the same bits. Its outputs are the graph's own
+        tensors, which the next call overwrites. The DCN forward's launch
+        counters (`ops/dcn_fwd.py`) count each replay's launches and not the
+        capture's, which launches nothing."""
+        key = (self._cfg, torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+               tuple((tuple(t.shape), t.dtype) for t in inputs))
+        entry = self._graphs.get(key)
+        if entry is None:
+            static = tuple(t.clone() for t in inputs)
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                eager = self._forward_decode(*static)
+            main.wait_stream(side)
+            before = _dcn_launches()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = self._forward_decode(*static)
+            launched = _dcn_launches(since=before)
+            _count_dcn_launches(launched, -1)
+            self._graphs[key] = (static, graph, out, launched)
+            return eager
+        static, graph, out, launched = entry
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        graph.replay()
+        _count_dcn_launches(launched, 1)
+        return out
+
+    @torch.no_grad()
     def _forward_decode_raw(self, raw: torch.Tensor, transforms: torch.Tensor,
-                            render_params=None):
+                            render_params=None, graphed: bool = False):
         """uint8 frames + axis-aligned dst→src transforms in, decoded
         detections out: warp, normalisation, network and decode all on the
         device, nothing fetched in between. For the tracking model
         `render_params` (the host slot arrays of `tracking/render.py::
         render_inputs`) are rendered into the previous-frame heatmaps on the
         device between the warp and the network, whose previous-frame image
-        is `self.pre_images`."""
+        is `self.pre_images`. `graphed`: network and decode as one CUDA
+        graph replay (`_forward_decode_graphed`)."""
         cfg = self.cfg
         images = warp_axis_aligned_batch(raw, transforms, cfg.input_h, cfg.input_w)
         pre = ()
         if render_params is not None:
             maps = render_maps(*render_params, cfg.input_h, cfg.input_w, self.device)
             pre = (self.pre_images, *(m.permute(0, 2, 3, 1) for m in maps))
-        outputs, dets = self._forward_decode(images, *pre)
+        forward_decode = self._forward_decode_graphed if graphed else self._forward_decode
+        outputs, dets = forward_decode(images, *pre)
         return images, outputs, dets
 
     def _to_device(self, array: np.ndarray, site: str) -> torch.Tensor:
@@ -593,11 +670,15 @@ class Detector:
                     and self.debug_level < 2
                     and not (cfg.tracking_task and self.pre_images is None)
                 )
+                # Device phase `model`: from before the frame's upload to
+                # after decode (CUDA events, as `_batch_submit`'s).
+                model = profiler.device_phases("model", ("model",), self.device)
                 with profiler.span("pre") as stage:
                     if fused:
                         images, meta_s = self.pre_process(
                             image, meta_inp, scale=scale, warp=False
                         )
+                        model.mark()
                         raw = self._to_device(np.asarray(image), "frames")[None]
                         invs = self._to_device(
                             get_affine_transform(
@@ -616,15 +697,19 @@ class Detector:
                     if fused:
                         render_params = None
                         if cfg.tracking_task:
-                            tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
-                            render_params = render_inputs(tracks, meta_s, cfg)
-                        images_t, _, dets = self._forward_decode_raw(raw, invs, render_params)
+                            with profiler.span("render"):
+                                tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
+                                render_params = render_inputs(tracks, meta_s, cfg)
+                        images_t, _, dets = self._forward_decode_raw(
+                            raw, invs, render_params, graphed=self.graphed)
                     else:
+                        model.mark()
                         images_t = self._to_device(images, "frames")
                         extra = ()
                         if cfg.tracking_task:
                             extra = self._tracking_inputs(images_t, meta_s)
                         outputs, dets = self._forward_decode(images_t, *extra)
+                    model.mark()
                     dets = _fetch(dets)  # one transfer, behind a wait for the device
                     if self.debug_level >= 2 and scale == 1.0:
                         self._debug_raw = self._debug_maps(images, outputs, dets, extra)
@@ -705,8 +790,9 @@ class Detector:
             self.pre_images = images
             if "pre_dets" in meta:
                 self.tracker.init_track(meta)
-        tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
-        pre_hm, pre_hm_hp = render_previous_heatmaps(tracks, meta, cfg, self.device)
+        with profiler.span("render"):
+            tracks = [] if cfg.empty_pre_hm else self.tracker.active_tracks()
+            pre_hm, pre_hm_hp = render_previous_heatmaps(tracks, meta, cfg, self.device)
         return self.pre_images, pre_hm, pre_hm_hp
 
     def reset_tracking(self) -> None:

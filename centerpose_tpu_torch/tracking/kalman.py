@@ -128,8 +128,14 @@ class KeypointKalman:
 
     def confidence(self, conf_border) -> np.ndarray:
         """Per-keypoint confidence from covariance (tracker.py:258-262):
-        conf = max(1 - exp(ln(0.15)/(b0-b1))^(std_combined - b1), 0)."""
+        conf = max(1 - exp(ln(0.15)/(b0-b1))^(std_combined - b1), 0).
+
+        Where the power would exceed 1 the confidence is already 0, so the
+        exponent is set to 0 there: the power then cannot overflow however
+        large the covariance grows, and every other value is unchanged."""
         b0, b1 = conf_border
         std_combined = np.sqrt(self.p[:, 0, 0] + self.p[:, 1, 1])
         base = np.exp(np.log(0.15) / (b0 - b1))
-        return np.maximum(1.0 - base ** (std_combined - b1), 0.0)
+        exponent = std_combined - b1
+        exponent = np.where(exponent * np.log(base) > 0, 0.0, exponent)
+        return np.maximum(1.0 - base ** exponent, 0.0)

@@ -24,6 +24,7 @@ import torch
 from centerpose_tpu_torch.config import CenterPoseConfig
 from centerpose_tpu_torch.geometry.affine import affine_transform_points, get_affine_transform
 from centerpose_tpu_torch.geometry.gaussian import gaussian_radius, render_gaussians
+from centerpose_tpu_torch.utils import profiler
 
 
 def render_maps(hm_params, hp_params, h: int, w: int,
@@ -32,7 +33,8 @@ def render_maps(hm_params, hp_params, h: int, w: int,
     """The twin of the JAX package's `_render_maps`: host slot arrays from
     `render_inputs` in, pre_hm [1, 1, h, w] and pre_hm_hp [1, J, h, w]
     (float32, on `device`) out. The center slots and the J keypoint slots go
-    to the device as one packed array and render in one call."""
+    to the device as one packed array (a blocking copy behind the wait
+    `render`) and render in one call."""
     centers, radii, amps, valid = hm_params
     hp_centers, hp_radii, hp_amps, hp_valid = hp_params
     j, mt = hp_radii.shape
@@ -41,7 +43,7 @@ def render_maps(hm_params, hp_params, h: int, w: int,
     packed[0, :, 2], packed[1:, :, 2] = radii, hp_radii
     packed[0, :, 3], packed[1:, :, 3] = amps, hp_amps
     packed[0, :, 4], packed[1:, :, 4] = valid, hp_valid
-    p = torch.from_numpy(packed).to(torch.device(device))
+    p = profiler.upload(packed, device, "render")
     maps = render_gaussians(p[..., :2], p[..., 2], p[..., 3], p[..., 4] > 0, h, w)
     return maps[None, :1], maps[None, 1:]
 

@@ -16,6 +16,13 @@ runs batched on the device for all tracks at once, as ONE padded solve over
 `cfg.max_tracks` slots (`ops/pnp.py::solve_pnp_packed`). The Hungarian solver
 is scipy.optimize.linear_sum_assignment (same optimum as sklearn's deprecated
 linear_assignment).
+
+Telemetry (`utils/profiler.py`): `step` runs in spans `associate` (steps 0-1),
+`kalman` (steps 2-4 and the filtered keypoints' read-out and gating), `pool`
+(the scale pool) and `re_pnp` (> `assemble`, `solve` on the card, the
+`wait.track_pnp.results` + `fetch` of the packed rows, `consume`), and counts
+once a step `tracks` (the tracks it carries on), `tracks.matched`,
+`tracks.new` and `re_pnp.rows` (the rows solved).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from centerpose_tpu_torch.config import CenterPoseConfig
 from centerpose_tpu_torch.geometry.cuboid import cuboid_vertices
 from centerpose_tpu_torch.ops.pnp import solve_pnp_packed, unpack_result
 from centerpose_tpu_torch.tracking.kalman import KeypointKalman
+from centerpose_tpu_torch.utils import profiler
 
 
 def greedy_assignment(dist: np.ndarray) -> np.ndarray:
@@ -45,14 +53,44 @@ def greedy_assignment(dist: np.ndarray) -> np.ndarray:
     return np.array(matched, np.int32).reshape(-1, 2)
 
 
+class ScalePool(list):
+    """A track's (scale, uncertainty) history, the list the published
+    tracker keeps, which also keeps the sums of its inverse-variance fusion
+    as it grows: the fusion of a long-lived track then costs the same every
+    frame, not one term per frame it has lived. The sums take the terms in
+    the order the published loop does, so the result is the same bits."""
+
+    def __init__(self, items=()):
+        super().__init__()
+        self.prec = np.zeros(3)
+        self.weighted = np.zeros(3)
+        for item in items:
+            self.append(item)
+
+    def append(self, item) -> None:
+        s_mean, s_unc = item
+        p = np.asarray(s_unc, np.float64) ** -2
+        self.prec += p
+        self.weighted += p * np.asarray(s_mean, np.float64)
+        super().append(item)
+
+    def __reduce__(self):
+        # A copy or a pickle rebuilds the sums from the items: the list's own
+        # reduction would restore them and then append every item again.
+        return ScalePool, (list(self),)
+
+
 def _pool_scale(scale_pool: List[Tuple[np.ndarray, np.ndarray]]):
     """Inverse-variance fusion over the track's history (tracker.py:98-110)."""
-    prec = np.zeros(3)
-    mean = np.zeros(3)
-    for s_mean, s_unc in scale_pool:
-        p = np.asarray(s_unc, np.float64) ** -2
-        prec += p
-        mean += p * np.asarray(s_mean, np.float64)
+    if isinstance(scale_pool, ScalePool):
+        prec, mean = scale_pool.prec, scale_pool.weighted
+    else:
+        prec = np.zeros(3)
+        mean = np.zeros(3)
+        for s_mean, s_unc in scale_pool:
+            p = np.asarray(s_unc, np.float64) ** -2
+            prec += p
+            mean += p * np.asarray(s_mean, np.float64)
     std = prec ** -0.5
     return mean * std ** 2, std
 
@@ -94,9 +132,9 @@ class Tracker:
                 if self.cfg.use_kalman and "kps_fusion_mean" in item:
                     item["kf"] = self._kf_init(item)
                 if self.cfg.use_scale_pool:
-                    item["scale_pool"] = [
+                    item["scale_pool"] = ScalePool([
                         (item["obj_scale"], item["obj_scale_uncertainty"])
-                    ]
+                    ])
                 self.tracks.append(item)
 
     # --- overridable filter hooks (TrackerBaseline swaps these) ----------------
@@ -133,6 +171,133 @@ class Tracker:
         if meta is not None:
             self.meta = meta
 
+        with profiler.span("associate"):
+            dets, matches, unmatched_dets, unmatched_tracks = self._associate(dets, boxes)
+
+        with profiler.span("kalman"):
+            # Step 2: matched (tracker.py:179-200).
+            ret = []
+            for mi in matches:
+                track = dets[mi[0]]
+                prev = self.tracks[mi[1]]
+                track["tracking_id"] = prev["tracking_id"]
+                track["age"] = 1
+                track["active"] = prev.get("active", 0) + 1
+                if cfg.use_kalman and "kf" in prev:
+                    track["kf"] = prev["kf"]
+                    track["kf"].predict()
+                    self._kf_update(track["kf"], track)
+                if cfg.use_scale_pool:
+                    track["scale_pool"] = prev["scale_pool"]
+                    track["scale_pool"].append(
+                        (track["obj_scale"], track["obj_scale_uncertainty"])
+                    )
+                ret.append(track)
+
+            # Step 3: new tracks (tracker.py:202-218).
+            new = 0
+            for i in unmatched_dets:
+                track = dets[i]
+                if track["score"] > cfg.new_thresh:
+                    new += 1
+                    self.id_count += 1
+                    track["tracking_id"] = self.id_count
+                    track["age"] = 1
+                    track["active"] = 1
+                    if cfg.use_kalman and "kps_fusion_mean" in track:
+                        track["kf"] = self._kf_init(track)
+                    if cfg.use_scale_pool:
+                        track["scale_pool"] = ScalePool([
+                            (track["obj_scale"], track["obj_scale_uncertainty"])
+                        ])
+                    ret.append(track)
+
+            # Step 4: age unmatched tracks, assume static (tracker.py:220-236).
+            for i in unmatched_tracks:
+                track = self.tracks[i]
+                if track["age"] < cfg.max_age:
+                    track["age"] += 1
+                    track["active"] = 0
+                    ret.append(track)
+
+            if not (cfg.use_kalman or cfg.use_scale_pool):
+                self.tracks = ret
+                self._count(ret, matches, new, 0)
+                return ret, boxes
+
+            # Step 5: filtered keypoints, low-confidence ones dropped to
+            # -10000 (tracker.py:243-266).
+            kps_filtered, confs = [], []
+            for track in ret:
+                kps_mean_kf = np.asarray(track["kps"], np.float64).reshape(-1, 2)
+                kps_conf = None
+                if cfg.use_kalman and "kf" in track:
+                    kf: KeypointKalman = track["kf"]
+                    kps_mean_kf = kf.positions.astype(np.float64)
+                    track["kps_mean_kf"] = kps_mean_kf
+                    track["kps_std_kf"] = kf.position_std
+                    kps_conf = kf.confidence(cfg.conf_border)
+                    low = kps_conf < 0.15
+                    kps_mean_kf[low] = -10000.0
+                kps_filtered.append(kps_mean_kf)
+                confs.append(kps_conf)
+
+        with profiler.span("pool"):
+            # Step 5: the pooled scale (tracker.py:268-274).
+            scales = []
+            for track in ret:
+                scale_new = np.asarray(track["obj_scale"])
+                if cfg.use_scale_pool and "scale_pool" in track:
+                    mean, std = self._pool(track["scale_pool"])
+                    track["obj_scale_kf"] = mean
+                    track["obj_scale_uncertainty_kf"] = std
+                    scale_new = mean
+                scales.append(scale_new)
+
+        # Step 6: re-PnP on the filtered keypoints and pooled scale
+        # (tracker.py:276-292): ONE fixed-shape solve over cfg.max_tracks
+        # padded slots per frame (a per-track solve would cost a round of
+        # launches and a fetch per track).
+        with profiler.span("re_pnp"):
+            pnp_inputs = list(zip(ret, kps_filtered, scales, confs))
+            solved = pnp_inputs[: cfg.max_tracks]
+            results = self._re_pnp_batch(solved)
+            new_boxes = []
+            for (track, _, scale_new, kps_conf), ret_pnp in zip(pnp_inputs, results):
+                if ret_pnp is None:
+                    continue
+                conf_avg = float(np.sum(kps_conf) / 8) if kps_conf is not None else 1.0
+                if conf_avg > 0.25:
+                    new_boxes.append(ret_pnp)
+                track["kps_pnp_kf"] = ret_pnp[0]
+                track["kps_3d_cam_kf"] = ret_pnp[1]
+                track["kps_ori_kf"] = ret_pnp[3]
+
+            if len(pnp_inputs) > cfg.max_tracks:
+                # Tracks beyond the fixed device-solve slots keep their UNREFINED
+                # PnP box from this frame (the reference has no cap; silently
+                # dropping valid detections would hide them from eval and the
+                # pre-heatmap render).
+                print(
+                    f"WARNING: {len(pnp_inputs)} tracks exceed max_tracks="
+                    f"{cfg.max_tracks}; overflow boxes pass through un-refined",
+                    flush=True,
+                )
+                refine_input = {id(b[4]): b for b in boxes}
+                for track, _, _, _ in pnp_inputs[cfg.max_tracks:]:
+                    box = refine_input.get(id(track))
+                    if box is not None:
+                        new_boxes.append(box)
+
+        self.tracks = ret
+        self._count(ret, matches, new, len(solved) if self._can_solve(solved) else 0)
+        return ret, new_boxes
+
+    def _associate(self, dets: List[dict], boxes: List[tuple]):
+        """Steps 0-1: the tracked detections, and their greedy (or
+        Hungarian) matching to the tracks: (dets, matches [k, 2] of
+        (det, track), unmatched det indices, unmatched track indices)."""
+        cfg = self.cfg
         # Step 0: when PnP ran, only PnP-surviving dets are tracked (tracker.py:115-123).
         if boxes:
             dets = []
@@ -197,109 +362,17 @@ class Tracker:
             matches = np.array(matches).reshape(-1, 2)
         else:
             matches = matched_indices
+        return dets, matches, unmatched_dets, unmatched_tracks
 
-        # Step 2: matched (tracker.py:179-200).
-        ret = []
-        for mi in matches:
-            track = dets[mi[0]]
-            prev = self.tracks[mi[1]]
-            track["tracking_id"] = prev["tracking_id"]
-            track["age"] = 1
-            track["active"] = prev.get("active", 0) + 1
-            if cfg.use_kalman and "kf" in prev:
-                track["kf"] = prev["kf"]
-                track["kf"].predict()
-                self._kf_update(track["kf"], track)
-            if cfg.use_scale_pool:
-                track["scale_pool"] = prev["scale_pool"]
-                track["scale_pool"].append(
-                    (track["obj_scale"], track["obj_scale_uncertainty"])
-                )
-            ret.append(track)
+    @staticmethod
+    def _count(ret, matches, new: int, rows: int) -> None:
+        profiler.count("tracks", len(ret))
+        profiler.count("tracks.matched", len(matches))
+        profiler.count("tracks.new", new)
+        profiler.count("re_pnp.rows", rows)
 
-        # Step 3: new tracks (tracker.py:202-218).
-        for i in unmatched_dets:
-            track = dets[i]
-            if track["score"] > cfg.new_thresh:
-                self.id_count += 1
-                track["tracking_id"] = self.id_count
-                track["age"] = 1
-                track["active"] = 1
-                if cfg.use_kalman and "kps_fusion_mean" in track:
-                    track["kf"] = self._kf_init(track)
-                if cfg.use_scale_pool:
-                    track["scale_pool"] = [
-                        (track["obj_scale"], track["obj_scale_uncertainty"])
-                    ]
-                ret.append(track)
-
-        # Step 4: age unmatched tracks, assume static (tracker.py:220-236).
-        for i in unmatched_tracks:
-            track = self.tracks[i]
-            if track["age"] < cfg.max_age:
-                track["age"] += 1
-                track["active"] = 0
-                ret.append(track)
-
-        if not (cfg.use_kalman or cfg.use_scale_pool):
-            self.tracks = ret
-            return ret, boxes
-
-        # Steps 5-6: filtered keypoints + pooled scale → re-PnP (tracker.py:238-292).
-        # ONE fixed-shape solve over cfg.max_tracks padded slots per frame
-        # (a per-track solve would cost a round of launches and a fetch per
-        # track).
-        new_boxes = []
-        pnp_inputs = []
-        for track in ret:
-            kps_mean_kf = np.asarray(track["kps"], np.float64).reshape(-1, 2)
-            kps_conf = None
-            if cfg.use_kalman and "kf" in track:
-                kf: KeypointKalman = track["kf"]
-                kps_mean_kf = kf.positions.astype(np.float64)
-                track["kps_mean_kf"] = kps_mean_kf
-                track["kps_std_kf"] = kf.position_std
-                kps_conf = kf.confidence(cfg.conf_border)
-                low = kps_conf < 0.15
-                kps_mean_kf[low] = -10000.0
-
-            scale_new = np.asarray(track["obj_scale"])
-            if cfg.use_scale_pool and "scale_pool" in track:
-                mean, std = self._pool(track["scale_pool"])
-                track["obj_scale_kf"] = mean
-                track["obj_scale_uncertainty_kf"] = std
-                scale_new = mean
-            pnp_inputs.append((track, kps_mean_kf, scale_new, kps_conf))
-
-        results = self._re_pnp_batch(pnp_inputs[: cfg.max_tracks])
-        for (track, _, scale_new, kps_conf), ret_pnp in zip(pnp_inputs, results):
-            if ret_pnp is None:
-                continue
-            conf_avg = float(np.sum(kps_conf) / 8) if kps_conf is not None else 1.0
-            if conf_avg > 0.25:
-                new_boxes.append(ret_pnp)
-            track["kps_pnp_kf"] = ret_pnp[0]
-            track["kps_3d_cam_kf"] = ret_pnp[1]
-            track["kps_ori_kf"] = ret_pnp[3]
-
-        if len(pnp_inputs) > cfg.max_tracks:
-            # Tracks beyond the fixed device-solve slots keep their UNREFINED
-            # PnP box from this frame (the reference has no cap; silently
-            # dropping valid detections would hide them from eval and the
-            # pre-heatmap render).
-            print(
-                f"WARNING: {len(pnp_inputs)} tracks exceed max_tracks="
-                f"{cfg.max_tracks}; overflow boxes pass through un-refined",
-                flush=True,
-            )
-            refine_input = {id(b[4]): b for b in boxes}
-            for track, _, _, _ in pnp_inputs[cfg.max_tracks:]:
-                box = refine_input.get(id(track))
-                if box is not None:
-                    new_boxes.append(box)
-
-        self.tracks = ret
-        return ret, new_boxes
+    def _can_solve(self, items) -> bool:
+        return bool(items) and self.meta is not None and "camera_matrix" in self.meta
 
     # ------------------------------------------------------------------ re-PnP
     def _re_pnp_batch(self, items):
@@ -314,40 +387,43 @@ class Tracker:
         # Imported here: the detector module imports this one.
         from centerpose_tpu_torch.inference.detector import pnp_shell_epilogue
 
-        if self.meta is None or "camera_matrix" not in self.meta or not items:
+        if not self._can_solve(items):
             return [None] * len(items)
 
-        m = self.cfg.max_tracks
-        kps_pad = np.full((m, 8, 2), -10000.0, np.float32)
-        # Unit cuboid in padded slots keeps the branchless solver well-posed.
-        cuboids = np.tile(cuboid_vertices(np.ones(3)), (m, 1, 1))
-        for i, (_, kps, scale, _) in enumerate(items):
-            kps_pad[i] = np.asarray(kps, np.float64).reshape(8, 2)
-            s = np.asarray(scale, np.float64)
-            cuboids[i] = cuboid_vertices(s / max(float(s[1]), 1e-9))
+        with profiler.span("assemble"):
+            m = self.cfg.max_tracks
+            kps_pad = np.full((m, 8, 2), -10000.0, np.float32)
+            # Unit cuboid in padded slots keeps the branchless solver well-posed.
+            cuboids = np.tile(cuboid_vertices(np.ones(3)), (m, 1, 1))
+            for i, (_, kps, scale, _) in enumerate(items):
+                kps_pad[i] = np.asarray(kps, np.float64).reshape(8, 2)
+                s = np.asarray(scale, np.float64)
+                cuboids[i] = cuboid_vertices(s / max(float(s[1]), 1e-9))
 
-        res = unpack_result(solve_pnp_packed(
+        packed = solve_pnp_packed(
             kps_pad, cuboids.astype(np.float32),
             np.asarray(self.meta["camera_matrix"], np.float32), device=self.device,
-        ).cpu().numpy())
+        )
+        res = unpack_result(profiler.fetch(packed, "track_pnp.results"))
 
-        outs = []
-        for i, (track, _, _, _) in enumerate(items):
-            if not bool(res.valid[i]):
-                outs.append(None)
-                continue
-            location = res.translation_gl[i].astype(np.float64)
-            track["location"] = location.tolist()
-            track["quaternion_xyzw"] = res.quaternion_gl[i].tolist()
+        with profiler.span("consume"):
+            outs = []
+            for i, (track, _, _, _) in enumerate(items):
+                if not bool(res.valid[i]):
+                    outs.append(None)
+                    continue
+                location = res.translation_gl[i].astype(np.float64)
+                track["location"] = location.tolist()
+                track["quaternion_xyzw"] = res.quaternion_gl[i].tolist()
 
-            proj9, pts3d, kps9, ok = pnp_shell_epilogue(
-                cuboids[i], res.rotation_gl[i].astype(np.float64), location,
-                np.asarray(res.projected[i], np.float64),
-                self.meta["width"], self.meta["height"], self.cfg.category,
-                track["kps"],
-            )
-            if not ok:
-                outs.append(None)
-                continue
-            outs.append((proj9, pts3d, np.asarray(track["obj_scale"]), kps9, track))
+                proj9, pts3d, kps9, ok = pnp_shell_epilogue(
+                    cuboids[i], res.rotation_gl[i].astype(np.float64), location,
+                    np.asarray(res.projected[i], np.float64),
+                    self.meta["width"], self.meta["height"], self.cfg.category,
+                    track["kps"],
+                )
+                if not ok:
+                    outs.append(None)
+                    continue
+                outs.append((proj9, pts3d, np.asarray(track["obj_scale"]), kps9, track))
         return outs

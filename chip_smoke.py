@@ -1805,9 +1805,11 @@ def run_video(det, frames):
     set to 0 before each and read after; the maximum of the pre_hm the
     network was given, the re-PnP solves and each PnP solve of the frame
     (`spy_pnp`) are recorded by wrapping the detector's `_forward_decode`,
-    the tracker's `_re_pnp_batch` and the two modules' `solve_pnp_packed`."""
+    the tracker's `_re_pnp_batch` and the two modules' `solve_pnp_packed`;
+    the network runs eagerly (`Detector.graphed` False)."""
     pre_hm_max, repnp = [], {"calls": 0, "valid": 0}
     real_forward, real_repnp = det._forward_decode, det.tracker._re_pnp_batch
+    det.graphed = False          # a graph replay would pass neither the wrapper nor the counter
 
     def forward_decode(images, pre_img=None, pre_hm=None, pre_hm_hp=None):
         pre_hm_max.append((len(per_frame), pre_hm.amax()))   # read after the frame

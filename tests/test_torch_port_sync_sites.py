@@ -1,5 +1,6 @@
-"""On the card: every synchronisation of a steady serving chunk sits at a
-named `wait` site of `utils/profiler.py`, and a train step has none.
+"""On the card: every synchronisation of a steady serving chunk and of a
+steady tracked frame sits at a named `wait` site of `utils/profiler.py`,
+and a train step has none.
 
 Each test runs its work under `profiler.strict_syncs()`, which sets
 `torch.cuda.set_sync_debug_mode("error")` and lifts it only inside each
@@ -22,6 +23,12 @@ from centerpose_tpu_torch.utils import profiler
 # The wait sites of a steady chunk of `run_batch_stream` (PERF.md lists them):
 # PnP's are its one packed upload and its one packed fetch.
 CHUNK_SITES = {"frames", "transforms", "warp.mean", "warp.std", "dets", "pnp.inputs", "pnp.results"}
+# The wait sites of a steady tracked frame of `Detector.run`: the render's
+# upload, and the tracker's re-PnP (its packed upload at `pnp.inputs` again,
+# its fetch at `track_pnp.results`). 10 waits: `pnp.inputs` twice.
+FRAME_SITES = {"frames", "transforms", "render", "warp.mean", "warp.std", "dets", "pnp.inputs", "pnp.results",
+               "track_pnp.results"}
+FRAME_WAITS = 10
 
 
 @pytest.fixture
@@ -62,6 +69,32 @@ def test_steady_chunk_syncs_only_at_wait_sites(card):
     assert snap["counters"]["pnp.launches"] - before.get("pnp.launches", 0) == 1
     assert snap["counters"]["pnp.rows"] - before.get("pnp.rows", 0) == boxes
     assert phases["model"]["count"] >= 1 and phases["model"]["records"][0]["ms"]["model"] > 0
+    profiler.reset()
+
+
+@pytest.mark.card
+def test_steady_tracked_frame_syncs_only_at_wait_sites(card):
+    """One steady frame of the CenterPoseTrack model (float32, the device
+    warp and render, two tracks carried): its sites, and two PnP launches,
+    the Detector's rows and the tracker's 16-slot re-PnP."""
+    cfg = preset("centerpose_track", vis_thresh=0.0, new_thresh=0.0, K=2)
+    det = Detector(cfg, device=card, seed=1)
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 255, (480, 640, 3), dtype=np.uint8) for _ in range(2)]
+    for k in range(3):
+        det.run(frames[k % 2])
+    torch.cuda.synchronize()
+    profiler.reset()
+    before = profiler.snapshot()["counters"]
+    with profiler.strict_syncs():
+        out = det.run(frames[1])
+    assert len(out["results"]) > 0, "no track reached the re-PnP: its sites went unchecked"
+    snap = profiler.snapshot()
+    sites = {name[len("wait."):] for name in snap["spans"] if name.startswith("wait.")}
+    assert sites == FRAME_SITES
+    assert snap["counters"]["wait"] == FRAME_WAITS
+    assert snap["counters"]["pnp.launches"] - before.get("pnp.launches", 0) == 2
+    assert snap["counters"]["re_pnp.rows"] == min(len(out["results"]), cfg.max_tracks)
     profiler.reset()
 
 
